@@ -60,6 +60,11 @@ def _check_common(jdir, tdir):
             np.testing.assert_array_equal(js[key], ts[key], err_msg=key)
     with open(os.path.join(jdir, "skip_stats.json")) as f:
         jstats = json.load(f)
+    if isinstance(jstats, dict):
+        # the JAX package wraps the list with its writer-phase timings once
+        # any run in this process has timed a writer phase (a process-wide
+        # accumulator), so what it writes depends on the tests run before
+        jstats = jstats["batches"]
     with open(os.path.join(tdir, "skip_stats.json")) as f:
         tstats = json.load(f)
     assert jstats == tstats

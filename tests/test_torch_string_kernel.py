@@ -111,12 +111,9 @@ def test_diverged_element_does_not_poison_batch(workload):
 
 
 UNPORTED = {
-    "bow": dict(bow={}),
-    "hammer": dict(hammer={}),
     "manufactured": dict(manufactured=True),
     "gmres_rescue": dict(gmres_rescue=True),
     "coupling_fixed": dict(coupling_fixed=2),
-    "interpolated_pickup": dict(surface_integral=False),
 }
 
 
@@ -135,9 +132,9 @@ def test_dispatch_counts_only_kernel_launches(workload):
     """CPU tensors take the plain version and do not count as launches; a
     device the port has no path for raises instead of falling back."""
     arrays, kw = _inputs(workload, np.float32, T=4)
-    before = sk.string_chunked.launches
+    before = dict(sk.string_chunked.launches_by_spec)
     uout, zout, aux = sk.string_chunked(*(torch.tensor(a) for a in arrays), **kw)
-    assert sk.string_chunked.launches == before
+    assert sk.string_chunked.launches_by_spec == before
     B, M_t, M_l = 4, kw["M_t"], kw["M_l"]
     assert uout.shape == zout.shape == (B, 4) and uout.dtype == torch.float32
     assert aux["state_u"].shape == (4, B, M_t)

@@ -1,74 +1,100 @@
 // Fused string step for NVIDIA Hopper (sm_90a): all T audio-rate steps of B
 // independent strings in one launch.
 //
-// Replaces torch_fdtd_string_tpu/ops/pallas_step.py::_kernel, pluck
-// specialization: no bow, no hammer, no MMS forcing, adaptive damped block
-// Gauss-Seidel coupling with poison-only exits (gmres_rescue=False), the
-// surface-integral readout and optional collect_state streaming.  The plain
-// PyTorch version of the same algorithm is
-// ops/string_kernel.py::string_chunked_reference.
+// Replaces torch_fdtd_string_tpu/ops/pallas_step.py::_kernel with adaptive
+// damped block Gauss-Seidel coupling and poison-only exits
+// (gmres_rescue=False), in eight compile-time specializations: with or
+// without the bow branch, with or without the hammer branch, and the
+// surface-integral or the interpolated pickup readout; optional
+// collect_state streaming.  The plain PyTorch version of the same algorithm
+// is ops/string_kernel.py::string_chunked_reference.
 //
 // Design: one CTA per string, one thread per grid point.  The block width W
 // is max(M_t, M_l) rounded up to whole warps (288 for the first nsynth-like
 // batch, M_t=172, M_l=262), and each PCR solve takes ceil(log2 W) levels.
 // The whole time loop runs inside the block with u^{n-1}, u^{n-2}, z^{n-1},
 // z^{n-2} and the PCR work arrays in shared memory (19 W + 128 floats,
-// 22 KB at W=288).
+// 22 KB at W=288; the bow adds one W-array for its force profile).
 // Cross-grid interpolation reads shared memory at the lo/hi indices
-// directly; per-string reductions (the sweep residuals, max|u| and the
-// surface integrals) are block reductions, so every string leaves its own
-// Gauss-Seidel loop as soon as it has converged, turned hopeless or NaN.
+// directly; per-string reductions (the sweep residuals, max|u|, the
+// readouts, the bow's probe velocity and the hammer's contact displacement)
+// are block reductions, so every string leaves its own Gauss-Seidel loop as
+// soon as it has converged, turned hopeless or NaN.  The per-string
+// excitation scalars (the hammer's inner fixed point of at most 40
+// iterations, the friction law, the hammer displacement carry) are computed
+// by every thread alike from the reduced values: the work is warp-uniform
+// and needs no barrier of its own.
 //
 // What bounds it on this card: it is latency-bound.  Each step is a
 // sequential chain of ~50 __syncthreads phases (one per PCR level, two PCR
-// solves per sweep, 1-3 sweeps per step), and a batch of B=24 strings
-// occupies only 24 of the 132 SMs.  Device-memory traffic is small: the f0
-// column in, two readout floats and, with collect_state, M_t + M_l floats of
-// state out per string and step, written coalesced.  Making it fast (several
-// strings per CTA, warp-level PCR with shuffles, fewer barriers) is later
-// work.
+// solves per sweep, 1-3 sweeps per step; an excitation adds one reduction
+// per step and one per sweep), and a batch of B=24 strings occupies only 24
+// of the 132 SMs.  Device-memory traffic is small: the f0 column (and the
+// four bow signals) in, the readouts and probe traces out and, with
+// collect_state, M_t + M_l floats of state out per string and step, written
+// coalesced.  Making it fast (several strings per CTA, warp-level PCR with
+// shuffles, fewer barriers) is later work.
 //
-// Entry point: string_step_launch (plain C, loaded with ctypes); it returns
-// the cudaError_t of the launch.
+// Entry point: string_step_launch (plain C, loaded with ctypes) takes a
+// LaunchArgs struct and returns the cudaError_t of the launch.
 
 #include <cuda_runtime.h>
 
+#include <float.h>
 #include <math.h>
 #include <stddef.h>
 
+// The launch arguments, passed by pointer from ops/string_kernel.py's
+// _LaunchArgs (same fields, same order); struct_size guards the layout.
+// Inputs: f0 and the bow's x_b, v_b, F_b, wid are (B, T); kappa, alpha, pos
+// (the pickup), phi_0, phi_1, bmask, x_H, w_H, M_r, alpha_H, hmask and the
+// initial hammer displacements uH1, uH2 are (B,); t60 is (B, 4) (freq1,
+// time1, freq2, time2); u1, u2 are rows n-1, n-2 (B, M_t), z1, z2 (B, M_l).
+// Outputs: uout, zout and, with an excitation, the probe traces v_r, F_H,
+// u_H are (B, T); the final carry u1_out, u2_out (B, M_t), z1_out, z2_out
+// (B, M_l); state_u (T, B, M_t) and state_z (T, B, M_l), or both null.
+struct LaunchArgs {
+  int struct_size, B, T, M_t, M_l, W, M_t_sem, coupling_iters;
+  int has_bow, has_hammer, surface_integral;
+  double k, theta, lambda_c, relative_error;
+  const float *f0, *kappa, *alpha, *pos, *t60, *u1, *u2, *z1, *z2;
+  const float *x_b, *v_b, *F_b, *wid, *phi_0, *phi_1, *bmask;
+  const float *x_H, *w_H, *M_r, *alpha_H, *hmask, *uH1, *uH2;
+  float *uout, *zout, *u1_out, *u2_out, *z1_out, *z2_out, *state_u, *state_z;
+  float *v_r, *F_H, *u_H;
+};
+
 namespace {
 
-struct Params {
-  const float* f0;     // (B, T)
-  const float* kappa;  // (B,)
-  const float* alpha;  // (B,)
-  const float* t60;    // (B, 4): freq1, time1, freq2, time2
-  const float* u1;     // (B, M_t) row n-1
-  const float* u2;     // (B, M_t) row n-2
-  const float* z1;     // (B, M_l)
-  const float* z2;     // (B, M_l)
-  float* uout;         // (B, T)
-  float* zout;         // (B, T)
-  float* u1_out;       // (B, M_t) final carry
-  float* u2_out;
-  float* z1_out;       // (B, M_l)
-  float* z2_out;
-  float* state_u;      // (T, B, M_t) or null
-  float* state_z;      // (T, B, M_l) or null
-  int B, T, M_t, M_l, levels, iters;
-  // constants folded in double on the host, then rounded to float, as the
-  // JAX kernel folds its Python-float constants
-  float k, k2, k4, theta, c_half, c_a0, two_t, two_two_t, lambda_c, two_pi;
-  float ln10_6, inner_eps, M_t_sem;
+// The kernel's parameters: the launch arguments, the PCR level count and
+// constants folded in double on the host, then rounded to float, as the JAX
+// kernel folds its Python-float constants.
+struct Params : LaunchArgs {
+  int levels;
+  float k_f, k2, k4, theta_f, c_half, c_a0, two_t, two_two_t, lambda_f, two_pi;
+  float ln10_6, inner_eps, M_t_f;
 };
 
 constexpr float kOmegaFloor = 0.0625f;
+constexpr float kHammerClamp = -0.01f;  // M_HD_CLAMP, pallas_step.py:46
+constexpr int kHammerMaxIter = 40;      // KernelConsts.hammer_max_iter
 constexpr int kNumArrays = 19;  // W-wide shared arrays, see the layout below
 constexpr int kRedFloats = 128;
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   // max that propagates NaN, as jnp.max / torch.amax do
   return (a != a || a > b) ? a : b;
+}
+
+__device__ __forceinline__ float nan_sign(float x) {
+  // jnp.sign: NaN stays NaN, a signed zero stays itself
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+__device__ __forceinline__ float nan_to_num(float x) {
+  // jnp.nan_to_num / torch.nan_to_num: NaN -> 0, +-inf -> +-FLT_MAX
+  if (x != x) return 0.0f;
+  return fminf(fmaxf(x, -FLT_MAX), FLT_MAX);
 }
 
 struct Interp {
@@ -157,7 +183,11 @@ __device__ __forceinline__ float pcr(float sub, float diag, float sup, float rhs
   return d;
 }
 
+template <bool kBow, bool kHammer, bool kSurface>
 __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
+  constexpr bool kExc = kBow || kHammer;
+  constexpr int kStepSums = (kBow ? 1 : 0) + (kHammer ? 2 : 0);
+  constexpr int kSweepSums = (kBow ? 1 : 0) + (kHammer ? 1 : 0);
   extern __shared__ float sm[];
   const int W = blockDim.x, i = threadIdx.x, b = blockIdx.x;
   const int T = p.T;
@@ -178,7 +208,8 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   float* sIu = sm + 16 * W;     // interpolated u-term (t->l)
   float* sUg = sm + 17 * W;     // Gauss-Seidel u iterate
   float* sZc = sm + 18 * W;     // current z iterate
-  float* sred = sm + kNumArrays * W;
+  float* sRc = sm + kNumArrays * W;  // bow force profile (bow only)
+  float* sred = sm + (kNumArrays + (kBow ? 1 : 0)) * W;
 
   su1[i] = i < p.M_t ? p.u1[(size_t)b * p.M_t + i] : 0.0f;
   su2[i] = i < p.M_t ? p.u2[(size_t)b * p.M_t + i] : 0.0f;
@@ -187,7 +218,29 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   const float kappa = p.kappa[b], alpha = p.alpha[b];
   const float freq1 = p.t60[4 * b], time1 = p.t60[4 * b + 1];
   const float freq2 = p.t60[4 * b + 2], time2 = p.t60[4 * b + 3];
-  const float k = p.k, theta = p.theta, inner_eps = p.inner_eps;
+  const float k = p.k_f, theta = p.theta_f, inner_eps = p.inner_eps;
+  const float pos = kSurface ? 0.0f : p.pos[b];
+  // per-string excitation constants and the hammer displacement carry
+  // (uHs: uH1 the newest, uH2 the one before), uniform across the block
+  float phi0 = 0.0f, phi1 = 0.0f, bm = 0.0f;
+  float x_H = 0.0f, w_H = 0.0f, M_r = 0.0f, a_H = 0.0f, hm = 0.0f;
+  float uH1 = 0.0f, uH2 = 0.0f;
+  if constexpr (kBow) {
+    phi0 = p.phi_0[b];
+    phi1 = p.phi_1[b];
+    bm = p.bmask[b];
+  }
+  if constexpr (kHammer) {
+    x_H = p.x_H[b];
+    w_H = p.w_H[b] / p.lambda_f;
+    M_r = p.M_r[b] / p.lambda_f;
+    a_H = p.alpha_H[b];
+    hm = p.hmask[b];
+  }
+  if constexpr (kExc) {
+    uH1 = p.uH1[b];
+    uH2 = p.uH2[b];
+  }
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
@@ -195,12 +248,12 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
     const float gamma = 2.0f * p.f0[(size_t)b * T + t];
     const float K = kappa * gamma;
     const float g2 = gamma * gamma, g4 = g2 * g2, KK = K * K;
-    const float h_1 = p.lambda_c *
+    const float h_1 = p.lambda_f *
         sqrtf((g2 * p.k2 + sqrtf(g4 * p.k4 + 16.0f * KK * p.k2 * p.two_t)) /
               p.two_two_t);
     const float N_t = floorf(1.0f / h_1);
     const float h_t = 1.0f / N_t;
-    const float h_2 = p.lambda_c * gamma * alpha * k;
+    const float h_2 = p.lambda_f * gamma * alpha * k;
     const float N_l = floorf(1.0f / h_2);
     const float h_l = 1.0f / N_l;
     const float n_t = N_t + 1.0f, n_l = N_l + 1.0f;
@@ -284,7 +337,8 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
     const float V_u2 = -phi_pow * (lam2 * u2m - (lam2 + d_next) * u2 + d_next * u2p) / hh_t;
     const float B1u1 = -2.0f * theta_u1 - gamma_k * dxx_u1 + KK * p.k2 * dxxxx_u1;
     const float C1u2 = theta_u2 - 2.0f * sig0 * k * u2 + 2.0f * sig1 * k * dxx_u2 + V_u2;
-    const float rhs_u = (B1u1 + C1u2 + 2.0f * K_tl1 + K_tl2) * live_t;
+    const float rhs_u0 = B1u1 + C1u2 + 2.0f * K_tl1 + K_tl2;
+    float rhs_u = rhs_u0 * live_t;  // iterate-independent without an excitation
     const float dxx_z1 = (Z1(i + 1) - 2.0f * z1 + Z1(i - 1)) / hh_l;
     const float dxx_z2 = (Z2(i + 1) - 2.0f * z2 + Z2(i - 1)) / hh_l;
     const float B4z1 = -2.0f * z1 - gamma_k * (alpha * alpha) * dxx_z1;
@@ -292,11 +346,93 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
     const float z_keep = fminf(fmaxf(N_t + N_l + 2.0f - p.M_t_sem, 0.0f), n_l);
     const float rhs_z = (B4z1 + C4z2 + K_lt2) * (itf < z_keep ? 1.0f : 0.0f);
 
+    // ---- excitation profiles, iterate-independent parts
+    // (pallas_step.py:418-447): the bow's raised cosine over the first M_t
+    // lanes, normalized by sum|rc|; the hammer's one-hot contact point and
+    // its displacement relative to the string at n-1 and n-2 ---------------
+    float v_b = 0.0f, F_b = 0.0f, eps_prof = 0.0f, tol_t = 0.0f;
+    float eta_1 = 0.0f, eta_2 = 0.0f, f_pow = 0.0f;
+    if constexpr (kExc) {
+      float rc = 0.0f;
+      float r[kStepSums];
+      int j = 0;
+      if constexpr (kBow) {
+        const size_t bt = (size_t)b * T + t;
+        v_b = p.v_b[bt];
+        F_b = p.F_b[bt];
+        const float wid_b = p.wid[bt] * h_t;
+        const float xax = (itf + 1.0f) / p.M_t_f;
+        const float nmin1 = N_t - 1.0f;
+        const float ctr = p.x_b[bt] * nmin1 / p.M_t_f;
+        const float wd = wid_b * nmin1 / p.M_t_f;
+        const float ind = nan_sign(nan_max(-(xax - ctr - wd / 2.0f) * (xax - ctr + wd / 2.0f), 0.0f));
+        rc = 0.5f * ind * (1.0f + cosf(p.two_pi * (xax - ctr) / wd));
+        rc = rc * (i < p.M_t ? 1.0f : 0.0f);
+        r[j++] = fabsf(rc);
+      }
+      if constexpr (kHammer) {
+        tol_t = static_cast<float>(pow(static_cast<double>(h_t), p.relative_error));
+        eps_prof = itf == floorf(x_H * (N_t - 1.0f)) ? 1.0f : 0.0f;
+        // masked sums, as the JAX kernel takes them: a NaN anywhere in the
+        // row reaches the result
+        r[j++] = eps_prof * u1;
+        r[j++] = eps_prof * u2;
+      }
+      block_reduce<kStepSums, false>(r, sred);
+      if constexpr (kBow) sRc[i] = rc / r[0];  // read back by this thread only
+      if constexpr (kHammer) {
+        eta_1 = uH1 - r[kStepSums - 2];
+        eta_2 = uH2 - r[kStepSums - 1];
+        // iteration-invariant factor of the power-law force; pow in double
+        // and rounded once, as close to the plain version's powf as it gets
+        f_pow = static_cast<float>(pow(static_cast<double>(w_H), static_cast<double>(1.0f + a_H))) *
+                static_cast<float>(pow(static_cast<double>(nan_max(eta_1, 0.0f)),
+                                       static_cast<double>(a_H - 1.0f)));
+      }
+    }
+
     // ---- adaptive damped block Gauss-Seidel (pallas_step.py:505-578) ------
     float u_c = u1, z_c = z1, omega = 1.0f, prev = INFINITY, scale_u = 0.0f;
+    float v_rel = 0.0f, F_H = 0.0f, u_H = 0.0f;  // probe values of the last sweep
     bool hopeless = false;
     float K_tl = K_tl1;  // sweep 1 reuses the RHS pass's z interpolation
     for (int sweep = 0;; ++sweep) {
+      if constexpr (kExc) {
+        // excitation RHS linearized at the iterate u_c (pallas_step.py:452-503)
+        float s[kSweepSums];
+        int j = 0;
+        if constexpr (kBow) {
+          const float du = sweep == 0 ? u1 - u2 : u_c - u1;
+          s[j++] = sRc[i] * (du / k - v_b);
+        }
+        if constexpr (kHammer) s[j++] = eps_prof * u_c;
+        block_reduce<kSweepSums, false>(s, sred);
+        float rhs = rhs_u0;
+        if constexpr (kBow) {
+          v_rel = s[0];
+          const float phi = nan_sign(v_rel) * (phi1 + (1.0f - phi1) * expf(-phi0 * fabsf(v_rel)));
+          const float G_B = -p.k2 * (sRc[i] / h_t) * (F_b * phi);
+          rhs = rhs + bm * nan_to_num(G_B);
+        }
+        if constexpr (kHammer) {
+          // inner fixed point on the string's scalars, at least one pass
+          const float eps_u = s[kSweepSums - 1];
+          float eta = eta_1 * hm;
+#pragma unroll 1
+          for (int ih = 0; ih < kHammerMaxIter; ++ih) {
+            const float f_H = f_pow * (eta + eta_2) / 2.0f;
+            F_H = eta_1 > 0.0f ? f_H : 0.0f;
+            u_H = nan_max(2.0f * uH1 - uH2 - p.k2 * F_H - kHammerClamp, 0.0f) + kHammerClamp;
+            const float eta_new = (u_H - eps_u) * hm;
+            const float res = fabsf(eta - eta_new);
+            eta = eta_new;
+            if (!(res > tol_t)) break;
+          }
+          const float G_H = -p.k2 * eps_prof * (M_r * F_H);
+          rhs = rhs + hm * nan_to_num(G_H);
+        }
+        rhs_u = rhs * live_t;
+      }
       if (sweep > 0) {
         sZc[i] = z_c;
         __syncthreads();
@@ -333,7 +469,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       hopeless = hop;
       scale_u = red[2] + inner_eps;
       const bool live_err = delta > inner_eps * scale_u && !hop;
-      if (!live_err || sweep + 1 >= p.iters) break;
+      if (!live_err || sweep + 1 >= p.coupling_iters) break;
     }
 
     // ---- poison untrusted exits, Dirichlet rows (pallas_step.py:593-609,
@@ -343,13 +479,41 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
                       (itf != N_t ? 1.0f : 0.0f);
     const float z_n = z_c * live_l * (i != 0 ? 1.0f : 0.0f) * (itf != N_l ? 1.0f : 0.0f);
 
-    // ---- surface-integral readout (pallas_step.py:771-774) ----------------
-    float sums[2] = {u_n - su1[i], z_n - sz1[i]};
-    block_reduce<2, false>(sums, sred);
-    if (i == 0) {
-      const float w_out = 0.5f * h_t;
-      p.uout[(size_t)b * T + t] = sums[0] * w_out / k;
-      p.zout[(size_t)b * T + t] = sums[1] * w_out / k;
+    // ---- readout (pallas_step.py:768-787) ---------------------------------
+    if constexpr (kSurface) {
+      float sums[2] = {u_n - su1[i], z_n - sz1[i]};
+      block_reduce<2, false>(sums, sred);
+      if (i == 0) {
+        float w_out = 0.5f * h_t;
+        if constexpr (kExc) w_out = w_out * (1.0f + hm + bm);
+        p.uout[(size_t)b * T + t] = sums[0] * w_out / k;
+        p.zout[(size_t)b * T + t] = sums[1] * w_out / k;
+      }
+    } else {
+      // interpolated pickup, taps as masked sums
+      const float u_ri = 1.0f + floorf(N_t * pos);
+      const float z_ri = 1.0f + floorf(N_l * pos);
+      float taps[4] = {(itf == u_ri ? 1.0f : 0.0f) * u_n, (itf == u_ri + 1.0f ? 1.0f : 0.0f) * u_n,
+                       (itf == z_ri ? 1.0f : 0.0f) * z_n, (itf == z_ri + 1.0f ? 1.0f : 0.0f) * z_n};
+      block_reduce<4, false>(taps, sred);
+      if (i == 0) {
+        const float u_rf = 1.0f + pos / h_t - u_ri, z_rf = 1.0f + pos / h_l - z_ri;
+        p.uout[(size_t)b * T + t] = (1.0f - u_rf) * taps[0] + u_rf * taps[1];
+        p.zout[(size_t)b * T + t] = (1.0f - z_rf) * taps[2] + z_rf * taps[3];
+      }
+    }
+    if constexpr (kExc) {
+      // probe traces and the uHs carry (pallas_step.py:791-802)
+      if constexpr (!kHammer) {  // free ballistic hammer displacement
+        u_H = nan_max(2.0f * uH1 - uH2 - kHammerClamp, 0.0f) + kHammerClamp;
+      }
+      if (i == 0) {
+        p.v_r[(size_t)b * T + t] = v_rel;
+        p.F_H[(size_t)b * T + t] = F_H;
+        p.u_H[(size_t)b * T + t] = u_H;
+      }
+      uH2 = uH1;
+      uH1 = u_H;
     }
     if (p.state_u != nullptr) {
       if (i < p.M_t) p.state_u[((size_t)t * p.B + b) * p.M_t + i] = u_n;
@@ -373,62 +537,77 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   }
 }
 
+template <bool kBow, bool kHammer, bool kSurface>
+cudaError_t launch(const Params& p, int W, cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(kNumArrays + (kBow ? 1 : 0)) * W + kRedFloats) * sizeof(float);
+  auto kernel = string_step_kernel<kBow, kHammer, kSurface>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<p.B, W, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int string_step_launch(
-    const float* f0, const float* kappa, const float* alpha, const float* t60,
-    const float* u1, const float* u2, const float* z1, const float* z2,
-    float* uout, float* zout, float* u1_out, float* u2_out, float* z1_out,
-    float* z2_out, float* state_u, float* state_z,
-    int B, int T, int M_t, int M_l, int W, int M_t_sem, int coupling_iters,
-    double k, double theta, double lambda_c, void* stream) {
-  if (W < 32 || W > 1024 || W % 32 != 0 || W < M_t || W < M_l ||
-      B < 1 || T < 1 || coupling_iters < 1 || (state_u == nullptr) != (state_z == nullptr)) {
+extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
+  if (a == nullptr || a->struct_size != static_cast<int>(sizeof(LaunchArgs))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int W = a->W;
+  const bool has_bow = a->has_bow != 0, has_hammer = a->has_hammer != 0;
+  const bool surface = a->surface_integral != 0;
+  const bool missing =
+      a->f0 == nullptr || a->kappa == nullptr || a->alpha == nullptr || a->t60 == nullptr ||
+      a->u1 == nullptr || a->u2 == nullptr || a->z1 == nullptr || a->z2 == nullptr ||
+      a->uout == nullptr || a->zout == nullptr || a->u1_out == nullptr ||
+      a->u2_out == nullptr || a->z1_out == nullptr || a->z2_out == nullptr ||
+      (!surface && a->pos == nullptr) ||
+      (has_bow && (a->x_b == nullptr || a->v_b == nullptr || a->F_b == nullptr ||
+                   a->wid == nullptr || a->phi_0 == nullptr || a->phi_1 == nullptr ||
+                   a->bmask == nullptr)) ||
+      (has_hammer && (a->x_H == nullptr || a->w_H == nullptr || a->M_r == nullptr ||
+                      a->alpha_H == nullptr || a->hmask == nullptr)) ||
+      ((has_bow || has_hammer) && (a->uH1 == nullptr || a->uH2 == nullptr ||
+                                   a->v_r == nullptr || a->F_H == nullptr ||
+                                   a->u_H == nullptr));
+  if (missing || W < 32 || W > 1024 || W % 32 != 0 || W < a->M_t || W < a->M_l ||
+      a->B < 1 || a->T < 1 || a->coupling_iters < 1 ||
+      (a->state_u == nullptr) != (a->state_z == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
-  p.f0 = f0;
-  p.kappa = kappa;
-  p.alpha = alpha;
-  p.t60 = t60;
-  p.u1 = u1;
-  p.u2 = u2;
-  p.z1 = z1;
-  p.z2 = z2;
-  p.uout = uout;
-  p.zout = zout;
-  p.u1_out = u1_out;
-  p.u2_out = u2_out;
-  p.z1_out = z1_out;
-  p.z2_out = z2_out;
-  p.state_u = state_u;
-  p.state_z = state_z;
-  p.B = B;
-  p.T = T;
-  p.M_t = M_t;
-  p.M_l = M_l;
-  int levels = 0;
-  while ((1 << levels) < W) ++levels;
-  p.levels = levels;
-  p.iters = coupling_iters;
-  p.k = static_cast<float>(k);
+  static_cast<LaunchArgs&>(p) = *a;
+  p.levels = 0;
+  while ((1 << p.levels) < W) ++p.levels;
+  const double k = a->k, theta = a->theta;
+  p.k_f = static_cast<float>(k);
   p.k2 = static_cast<float>(k * k);
   p.k4 = static_cast<float>(pow(k, 4.0));
-  p.theta = static_cast<float>(theta);
+  p.theta_f = static_cast<float>(theta);
   p.c_half = static_cast<float>((1.0 - theta) * 0.5);
   p.c_a0 = static_cast<float>((1.0 - theta) / 2.0);
   p.two_t = static_cast<float>(2.0 * theta - 1.0);
   p.two_two_t = static_cast<float>(2.0 * (2.0 * theta - 1.0));
-  p.lambda_c = static_cast<float>(lambda_c);
+  p.lambda_f = static_cast<float>(a->lambda_c);
   p.two_pi = static_cast<float>(2.0 * M_PI);
   p.ln10_6 = static_cast<float>(6.0 * log(10.0));
   p.inner_eps = static_cast<float>(100.0 * 1.1920928955078125e-07);  // 100 FLT_EPSILON
-  p.M_t_sem = static_cast<float>(M_t_sem);
+  p.M_t_f = static_cast<float>(a->M_t);
 
-  const size_t smem = (static_cast<size_t>(kNumArrays) * W + kRedFloats) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      string_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  string_step_kernel<<<B, W, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  const int spec = (has_bow ? 4 : 0) | (has_hammer ? 2 : 0) | (surface ? 1 : 0);
+  switch (spec) {
+    case 0: err = launch<false, false, false>(p, W, s); break;
+    case 1: err = launch<false, false, true>(p, W, s); break;
+    case 2: err = launch<false, true, false>(p, W, s); break;
+    case 3: err = launch<false, true, true>(p, W, s); break;
+    case 4: err = launch<true, false, false>(p, W, s); break;
+    case 5: err = launch<true, false, true>(p, W, s); break;
+    case 6: err = launch<true, true, false>(p, W, s); break;
+    default: err = launch<true, true, true>(p, W, s); break;
+  }
+  return static_cast<int>(err);
 }

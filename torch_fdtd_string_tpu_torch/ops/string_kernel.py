@@ -4,7 +4,7 @@ PyTorch counterpart of ``torch_fdtd_string_tpu/ops/pallas_step.py``.  Each
 step solves the implicit theta-scheme for the coupled transverse (u) and
 longitudinal (z) displacement with adaptive damped block Gauss-Seidel
 sweeps, each sweep two masked PCR tridiagonal solves, and reads the
-surface-integral output.
+output at the pickup or as the surface integral.
 
 :func:`string_chunked` dispatches on the device of its inputs:
 
@@ -13,17 +13,19 @@ surface-integral output.
 * CPU tensors run :func:`string_chunked_reference`, the plain PyTorch
   version of the same algorithm, in float32 or float64.
 
-Only the pluck specialization exists so far: no bow, no hammer, no MMS
-forcing, poison-only exits (``gmres_rescue=False``), the adaptive sweep
-schedule (``coupling_fixed=0``) and the surface-integral readout.  Every
-other specialization raises ``NotImplementedError`` on both devices and
-names the ROADMAP Queue 2 item that ports it.
+Ported specializations: pluck, bow, hammer and any mix of them per string
+(``bow`` / ``hammer`` dicts with per-string masks), the surface-integral
+and the interpolated pickup readout, poison-only exits
+(``gmres_rescue=False``) and the adaptive sweep schedule
+(``coupling_fixed=0``).  MMS forcing, the in-kernel GMRES rescue and the
+fixed sweep schedule raise ``NotImplementedError`` on both devices and name
+the ROADMAP Queue 2 item that ports them.
 
 Semantics follow the JAX kernel line by line with one deliberate change:
-each string leaves its Gauss-Seidel loop on its own (convergence, hopeless
-back-off or NaN), where the TPU kernel iterates the whole batch block until
-every string is done.  A string's result therefore never depends on the
-other strings in its batch.
+each string leaves its Gauss-Seidel loop, and the hammer's inner fixed
+point, on its own (convergence, hopeless back-off or NaN), where the TPU
+kernel iterates the whole batch block until every string is done.  A
+string's result therefore never depends on the other strings in its batch.
 """
 
 from __future__ import annotations
@@ -39,13 +41,10 @@ from .fdm import LN10_6
 from .tridiag import pcr_normalized
 
 OMEGA_FLOOR = 0.0625  # under-relaxation floor of the adaptive sweeps
-
-# csrc/string_step.cu::string_step_launch: 16 pointers (inputs, outputs,
-# optional state fields), 7 ints, k/theta_t/lambda_c, the CUDA stream
-_LAUNCH_ARGTYPES = (
-    [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_double] * 3
-    + [ctypes.c_void_p]
-)
+M_HD_CLAMP = -0.01  # hammer displacement clamp (pallas_step.py:46)
+HAMMER_MAX_ITER = 40  # inner hammer fixed-point cap (csrc/string_step.cu::kHammerMaxIter)
+BOW_KEYS = ("x_b", "v_b", "F_b", "wid", "phi_0", "phi_1", "mask")
+HAMMER_KEYS = ("x_H", "w_H", "M_r", "alpha", "mask")
 
 
 class KernelConsts(NamedTuple):
@@ -58,6 +57,38 @@ class KernelConsts(NamedTuple):
     collect_state: bool
     # allocation width that sets the z live-row count (pallas_step.py:101-106)
     M_t_sem: int
+    surface_integral: bool
+    has_bow: bool
+    has_hammer: bool
+    relative_error: float  # hammer tolerance h_t ** relative_error
+
+    @property
+    def name(self):
+        """Specialization name: pluck, bow, hammer or mix, ``-pickup`` with
+        the interpolated pickup readout."""
+        exc = {(False, False): "pluck", (True, False): "bow",
+               (False, True): "hammer", (True, True): "mix"}
+        base = exc[(self.has_bow, self.has_hammer)]
+        return base if self.surface_integral else f"{base}-pickup"
+
+
+class _LaunchArgs(ctypes.Structure):
+    """csrc/string_step.cu::LaunchArgs, field for field.  The kernel checks
+    ``struct_size`` against its own ``sizeof`` and refuses a mismatch."""
+
+    _fields_ = (
+        [(n, ctypes.c_int) for n in (
+            "struct_size", "B", "T", "M_t", "M_l", "W", "M_t_sem",
+            "coupling_iters", "has_bow", "has_hammer", "surface_integral")]
+        + [(n, ctypes.c_double) for n in (
+            "k", "theta", "lambda_c", "relative_error")]
+        + [(n, ctypes.c_void_p) for n in (
+            "f0", "kappa", "alpha", "pos", "t60", "u1", "u2", "z1", "z2",
+            "x_b", "v_b", "F_b", "wid", "phi_0", "phi_1", "bmask",
+            "x_H", "w_H", "M_r", "alpha_H", "hmask", "uH1", "uH2",
+            "uout", "zout", "u1_out", "u2_out", "z1_out", "z2_out",
+            "state_u", "state_z", "v_r", "F_H", "u_H")]
+    )
 
 
 def padded_width(M_t, M_l):
@@ -72,14 +103,10 @@ def pcr_levels(width):
 
 
 def _consts(*, k, theta_t, lambda_c, M_t, M_l, coupling_iters, surface_integral,
-            collect_state, bow, hammer, manufactured, coupling_fixed,
-            gmres_rescue, M_t_sem):
+            collect_state, bow, hammer, relative_error, manufactured,
+            coupling_fixed, gmres_rescue, M_t_sem):
     """Validate the requested specialization; raise for the unported ones."""
     missing = []
-    if bow is not None:
-        missing.append("bow excitation (ROADMAP Queue 2 item 5)")
-    if hammer is not None:
-        missing.append("hammer excitation (ROADMAP Queue 2 item 6)")
     if manufactured:
         missing.append("MMS forcing (ROADMAP Queue 2 item 7)")
     if gmres_rescue:
@@ -88,20 +115,51 @@ def _consts(*, k, theta_t, lambda_c, M_t, M_l, coupling_iters, surface_integral,
     if coupling_fixed > 0:
         missing.append("fixed sweep schedule, coupling_fixed>0 "
                        "(ROADMAP Queue 2 item 3)")
-    if not surface_integral:
-        missing.append("interpolated pickup readout, surface_integral=False "
-                       "(ROADMAP Queue 2 item 2)")
     if missing:
         raise NotImplementedError(
             "string kernel specialization not ported: " + "; ".join(missing))
     if coupling_iters < 1:
         raise ValueError(f"coupling_iters must be >= 1, got {coupling_iters}")
+    for what, d, keys in (("bow", bow, BOW_KEYS), ("hammer", hammer, HAMMER_KEYS)):
+        if d is not None and not set(keys) <= set(d):
+            raise KeyError(f"{what} needs {sorted(keys)}, got {sorted(d)}")
     return KernelConsts(
         k=float(k), theta_t=float(theta_t), lambda_c=float(lambda_c),
         M_t=int(M_t), M_l=int(M_l), coupling_iters=int(coupling_iters),
         collect_state=bool(collect_state),
         M_t_sem=int(M_t if M_t_sem is None else M_t_sem),
+        surface_integral=bool(surface_integral),
+        has_bow=bow is not None, has_hammer=hammer is not None,
+        relative_error=float(relative_error),
     )
+
+
+def _excitation(f0, bow, hammer):
+    """The excitation inputs as one dict in ``f0``'s dtype: bow signals
+    ``(B, T)``, per-string scalars ``(B, 1)``, masks as 0/1 values and the
+    initial hammer displacements ``uH1``/``uH2`` (``(B, 1)``; -1e-3 when
+    absent, as the JAX kernel defaults them)."""
+    B = f0.shape[0]
+    as_dt = lambda x: torch.as_tensor(x, device=f0.device).to(f0.dtype)
+    exc = {}
+    if bow is not None:
+        for key in ("x_b", "v_b", "F_b", "wid"):
+            exc[key] = as_dt(bow[key])
+        for key in ("phi_0", "phi_1"):
+            exc[key] = as_dt(bow[key]).reshape(B, 1)
+        exc["bmask"] = as_dt(bow["mask"]).reshape(B, 1)
+    if hammer is not None:
+        for key in ("x_H", "w_H", "M_r"):
+            exc[key] = as_dt(hammer[key]).reshape(B, 1)
+        exc["alpha_H"] = as_dt(hammer["alpha"]).reshape(B, 1)
+        exc["hmask"] = as_dt(hammer["mask"]).reshape(B, 1)
+    if exc:
+        src = hammer if hammer is not None else bow
+        for key in ("uH1", "uH2"):
+            x = src.get(key)
+            exc[key] = (torch.full((B, 1), -1e-3, dtype=f0.dtype, device=f0.device)
+                        if x is None else as_dt(x).reshape(B, 1))
+    return exc
 
 
 def string_chunked(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
@@ -116,32 +174,44 @@ def string_chunked(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
 
     Arguments and results match the JAX ``string_chunked``:
     ``f0 (B, T)``, ``kappa/alpha/pos (B,)``, ``t60 (B, 2, 2)``,
-    ``u1/u2 (B, M_t)``, ``z1/z2 (B, M_l)``.  Returns ``(uout (B, T),
-    zout (B, T), aux)``; ``aux["carry"]`` is the final ``(u1, u2, z1, z2)``
-    and, with ``collect_state``, ``aux["state_u"] (T, B, M_t)`` and
-    ``aux["state_z"] (T, B, M_l)`` hold every step's state.
+    ``u1/u2 (B, M_t)``, ``z1/z2 (B, M_l)``; ``bow`` holds ``x_b/v_b/F_b/wid
+    (B, T)`` and ``phi_0/phi_1/mask (B,)``, ``hammer`` holds
+    ``x_H/w_H/M_r/alpha/mask (B,)``, and either may hold the initial hammer
+    displacements ``uH1/uH2 (B,)``.  Returns ``(uout (B, T), zout (B, T),
+    aux)``; ``aux["carry"]`` is the final ``(u1, u2, z1, z2)``; with an
+    excitation ``aux["v_r"]``, ``aux["F_H"]`` and ``aux["u_H"]`` are the
+    ``(B, T)`` probe traces; with ``collect_state``, ``aux["state_u"]
+    (T, B, M_t)`` and ``aux["state_z"] (T, B, M_l)`` hold every step's
+    state.
 
     ``chunk``, ``batch_block`` and ``interpret`` are the TPU kernel's
     tiling and have no effect here: the CUDA kernel loops over all T steps
-    inside one block per string.  ``relative_error`` and ``mms_centered``
-    matter only to the unported hammer and MMS specializations.
+    inside one block per string.  ``mms_centered`` matters only to the
+    unported MMS specialization.
     """
     c = _consts(
         k=k, theta_t=theta_t, lambda_c=lambda_c, M_t=M_t, M_l=M_l,
         coupling_iters=coupling_iters, surface_integral=surface_integral,
         collect_state=collect_state, bow=bow, hammer=hammer,
-        manufactured=manufactured, coupling_fixed=coupling_fixed,
-        gmres_rescue=gmres_rescue, M_t_sem=M_t_sem,
+        relative_error=relative_error, manufactured=manufactured,
+        coupling_fixed=coupling_fixed, gmres_rescue=gmres_rescue,
+        M_t_sem=M_t_sem,
     )
-    args = (f0, kappa, alpha, t60, u1, u2, z1, z2)
+    args = (f0, kappa, alpha, pos, t60, u1, u2, z1, z2)
     if f0.is_cuda:
-        return _launch_cuda(c, *args)
+        return _launch_cuda(c, *args, bow, hammer)
     if f0.device.type == "cpu":
-        return _reference(c, *args)
+        return _reference(c, *args, _excitation(f0, bow, hammer))
     raise ValueError(f"string_chunked: unsupported device {f0.device}")
 
 
-string_chunked.launches = 0  # kernel launches; the CPU path does not count
+# kernel launches per specialization (KernelConsts.name); the CPU path does
+# not count
+string_chunked.launches_by_spec = {}
+
+
+def reset_launch_counts():
+    string_chunked.launches_by_spec = {}
 
 
 def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
@@ -162,14 +232,21 @@ def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
         k=k, theta_t=theta_t, lambda_c=lambda_c, M_t=M_t, M_l=M_l,
         coupling_iters=coupling_iters, surface_integral=surface_integral,
         collect_state=collect_state, bow=bow, hammer=hammer,
-        manufactured=manufactured, coupling_fixed=coupling_fixed,
-        gmres_rescue=gmres_rescue, M_t_sem=M_t_sem,
+        relative_error=relative_error, manufactured=manufactured,
+        coupling_fixed=coupling_fixed, gmres_rescue=gmres_rescue,
+        M_t_sem=M_t_sem,
     )
-    return _reference(c, f0, kappa, alpha, t60, u1, u2, z1, z2)
+    return _reference(c, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
+                      _excitation(f0, bow, hammer))
+
+
+def _sign(x):
+    """``jnp.sign``: NaN stays NaN (``torch.sign`` maps it to 0)."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
 
 
 @torch.inference_mode()
-def _reference(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
+def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc):
     B, T = f0.shape
     dt, dev = f0.dtype, f0.device
     W = padded_width(c.M_t, c.M_l)
@@ -177,6 +254,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
     k, theta, lambda_c = c.k, c.theta_t, c.lambda_c
     inner_eps = 100.0 * float(torch.finfo(dt).eps)
     two_t = 2.0 * theta - 1.0
+    has_exc = c.has_bow or c.has_hammer
 
     def pad(x, M):
         return torch.nn.functional.pad(x, (0, W - M))
@@ -185,6 +263,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
     z1s, z2s = pad(z1, c.M_l), pad(z2, c.M_l)
     kappa = kappa[:, None]
     alpha = alpha[:, None]
+    pos = pos[:, None]
     t60f = t60.reshape(B, 4)
     freq1, time1, freq2, time2 = (t60f[:, j : j + 1] for j in range(4))
     it = torch.arange(W, device=dev)[None, :]
@@ -197,6 +276,19 @@ def _reference(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
     if c.collect_state:
         state_u = torch.empty((T, B, c.M_t), dtype=dt, device=dev)
         state_z = torch.empty((T, B, c.M_l), dtype=dt, device=dev)
+    if has_exc:
+        traces = {key: torch.empty((B, T), dtype=dt, device=dev)
+                  for key in ("v_r", "F_H", "u_H")}
+        uH1, uH2 = exc["uH1"], exc["uH2"]  # the uHs carry (pallas_step.py:176)
+    if c.has_bow:
+        bmask, phi0, phi1 = exc["bmask"], exc["phi_0"], exc["phi_1"]
+        xax = (itf + 1.0) / c.M_t
+        in_mt = (it < c.M_t).to(dt)
+    if c.has_hammer:
+        hmask = exc["hmask"]
+        a_H = exc["alpha_H"]
+        w_H = exc["w_H"] / lambda_c
+        M_r = exc["M_r"] / lambda_c
 
     def interp_idx(n_in, n_out):
         denom = torch.clamp(n_out - 1.0, min=1.0)
@@ -309,13 +401,55 @@ def _reference(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
         C1u2 = (st.theta_op(u2, theta) - 2.0 * sig0 * k * u2
                 + 2.0 * sig1 * k * st.dxx(u2, h_t) + V_u2)
         K_tl1 = K_tl_from(iz1)
-        rhs_u = (B1u1 + C1u2 + 2.0 * K_tl1 + K_tl_from(iz2)) * live_t
+        rhs_u0 = B1u1 + C1u2 + 2.0 * K_tl1 + K_tl_from(iz2)
         B4z1 = -2.0 * z1 - gamma_k * (alpha * alpha) * st.dxx(z1, h_l)
         C4z2 = (1.0 - 2.0 * sig0 * k) * z2 + 2.0 * sig1 * k * st.dxx(z2, h_l)
         rhs_z = B4z1 + C4z2 + K_lt_from(iu2)
         z_keep = torch.minimum(
             torch.clamp(N_t + N_l + 2.0 - c.M_t_sem, min=0.0), n_l)
         rhs_z = rhs_z * (itf < z_keep).to(dt)
+
+        # ---- excitation profiles, iterate-independent parts
+        # (pallas_step.py:418-447) -------------------------------------------
+        if c.has_bow:
+            x_b, v_b, F_b = (exc[key][:, t : t + 1] for key in ("x_b", "v_b", "F_b"))
+            wid_b = exc["wid"][:, t : t + 1] * h_t
+            nmin1 = N_t - 1.0
+            ctr = x_b * nmin1 / c.M_t
+            wd = wid_b * nmin1 / c.M_t
+            ind = _sign(torch.clamp(
+                -(xax - ctr - wd / 2.0) * (xax - ctr + wd / 2.0), min=0.0))
+            rc = 0.5 * ind * (1.0 + torch.cos(2.0 * math.pi * (xax - ctr) / wd))
+            rc = rc * in_mt
+            rc = rc / torch.sum(torch.abs(rc), dim=1, keepdim=True)
+        if c.has_hammer:
+            tol_t = h_t ** c.relative_error
+            eps_prof = (itf == torch.floor(exc["x_H"] * (N_t - 1.0))).to(dt)
+            eta_1 = uH1 - torch.sum(eps_prof * u1, dim=1, keepdim=True)
+            eta_2 = uH2 - torch.sum(eps_prof * u2, dim=1, keepdim=True)
+            # iteration-invariant factor of the power-law force
+            f_pow = (torch.pow(w_H, 1.0 + a_H)
+                     * torch.pow(torch.clamp(eta_1, min=0.0), a_H - 1.0))
+
+        def exc_rhs(u_c, first):
+            """``rhs_u`` with the excitation terms linearized at ``u_c``, and
+            the probe values (pallas_step.py:452-503)."""
+            rhs = rhs_u0
+            v_rel = F_H = u_H = zero
+            if c.has_bow:
+                du = (u1 - u2) if first else (u_c - u1)
+                v_rel = torch.sum(rc * (du / k - v_b), dim=1, keepdim=True)
+                phi = _sign(v_rel) * (phi1 + (1.0 - phi1) * torch.exp(-phi0 * torch.abs(v_rel)))
+                G_B = -(k**2) * (rc / h_t) * (F_b * phi)
+                rhs = rhs + bmask * torch.nan_to_num(G_B)
+            if c.has_hammer:
+                eps_u = torch.sum(eps_prof * u_c, dim=1, keepdim=True)
+                F_H, u_H = _hammer_fixed_point(
+                    uH1, uH2, eta_1 * hmask, eta_1, eta_2, f_pow, eps_u, hmask,
+                    tol_t, k)
+                G_H = -(k**2) * eps_prof * (M_r * F_H)
+                rhs = rhs + hmask * torch.nan_to_num(G_H)
+            return rhs * live_t, v_rel, F_H, u_H
 
         # ---- adaptive damped block Gauss-Seidel (pallas_step.py:505-578),
         # each string frozen once it has exited
@@ -326,7 +460,16 @@ def _reference(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
         scale_u = zero
         active = torch.ones((B, 1), dtype=torch.bool, device=dev)
         K_tl = K_tl1  # sweep 1 reuses the RHS pass's z interpolation
+        if has_exc:
+            v_rel = F_H = u_H = zero
+        else:
+            rhs_u = rhs_u0 * live_t  # iterate-independent: built once
         for sweep in range(c.coupling_iters):
+            if has_exc:
+                rhs_u, v_rel_s, F_H_s, u_H_s = exc_rhs(u_c, sweep == 0)
+                v_rel = torch.where(active, v_rel_s, v_rel)
+                F_H = torch.where(active, F_H_s, F_H)
+                u_H = torch.where(active, u_H_s, u_H)
             if sweep > 0:
                 K_tl = K_tl_from(interp(z_c, lt))
             u_g = pcr_normalized(sub_t, diag_t, sup_t, -rhs_u - K_tl, levels)
@@ -359,25 +502,76 @@ def _reference(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
         u_n = u_n * live_t * (it != 0).to(dt) * (itf != N_t).to(dt)
         z_n = z_c * live_l * (it != 0).to(dt) * (itf != N_l).to(dt)
 
-        # ---- surface-integral readout (pallas_step.py:771-774) -------------
-        w_out = 0.5 * h_t
-        uout[:, t : t + 1] = torch.sum(u_n - u1s, dim=1, keepdim=True) * w_out / k
-        zout[:, t : t + 1] = torch.sum(z_n - z1s, dim=1, keepdim=True) * w_out / k
+        # ---- readout (pallas_step.py:768-787) -------------------------------
+        if c.surface_integral:
+            w_out = 0.5 * h_t
+            if has_exc:
+                h_w = hmask if c.has_hammer else 0.0
+                b_w = bmask if c.has_bow else 0.0
+                w_out = w_out * (1.0 + h_w + b_w)
+            u_out = torch.sum(u_n - u1s, dim=1, keepdim=True) * w_out / k
+            z_out = torch.sum(z_n - z1s, dim=1, keepdim=True) * w_out / k
+        else:
+            def pickup(x, N, h):
+                ri = 1.0 + torch.floor(N * pos)
+                rf = 1.0 + pos / h - ri
+                tap = lambda j: torch.sum((itf == j).to(dt) * x, dim=1, keepdim=True)
+                return (1.0 - rf) * tap(ri) + rf * tap(ri + 1.0)
+
+            u_out = pickup(u_n, N_t, h_t)
+            z_out = pickup(z_n, N_l, h_l)
+        uout[:, t : t + 1] = u_out
+        zout[:, t : t + 1] = z_out
         if c.collect_state:
             state_u[t] = u_n[:, : c.M_t]
             state_z[t] = z_n[:, : c.M_l]
+        if has_exc:  # probe traces and the uHs carry (pallas_step.py:791-802)
+            if not c.has_hammer:  # free ballistic hammer displacement
+                u_H = torch.clamp(2.0 * uH1 - uH2 - M_HD_CLAMP, min=0.0) + M_HD_CLAMP
+            traces["v_r"][:, t : t + 1] = v_rel
+            traces["F_H"][:, t : t + 1] = F_H
+            traces["u_H"][:, t : t + 1] = u_H
+            uH2, uH1 = uH1, u_H
         u2s, u1s = u1s, u_n
         z2s, z1s = z1s, z_n
 
     aux = {"carry": (u1s[:, : c.M_t], u2s[:, : c.M_t],
                      z1s[:, : c.M_l], z2s[:, : c.M_l])}
+    if has_exc:
+        aux.update(traces)
     if c.collect_state:
         aux["state_u"] = state_u
         aux["state_z"] = state_z
     return uout, zout, aux
 
 
-def _launch_cuda(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
+def _hammer_fixed_point(uH1, uH2, eta0, eta_1, eta_2, f_pow, eps_u, hmask,
+                        tol_t, k):
+    """Inner hammer fixed point on ``(B, 1)`` scalars (pallas_step.py:473-500).
+    At least one iteration; a string stops once its update moves ``eta`` by
+    no more than ``tol_t`` (a NaN update stops it too) or after
+    ``HAMMER_MAX_ITER``.  Returns ``(F_H, u_H)``."""
+    F_H = u_H = torch.zeros_like(eta0)
+    eta = eta0
+    active = torch.ones_like(eta0, dtype=torch.bool)
+    for _ in range(HAMMER_MAX_ITER):
+        f_H = f_pow * (eta + eta_2) / 2.0
+        F_n = torch.where(eta_1 > 0, f_H, torch.zeros_like(f_H))
+        u_n = 2.0 * uH1 - uH2 - k**2 * F_n
+        u_n = torch.clamp(u_n - M_HD_CLAMP, min=0.0) + M_HD_CLAMP
+        eta_n = (u_n - eps_u) * hmask
+        res = torch.abs(eta - eta_n)
+        F_H = torch.where(active, F_n, F_H)
+        u_H = torch.where(active, u_n, u_H)
+        eta = torch.where(active, eta_n, eta)
+        active = active & (res > tol_t)
+        if not bool(active.any()):
+            break
+    return F_H, u_H
+
+
+def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
+                 bow, hammer):
     """Check the inputs, allocate the outputs and launch ``string_step``."""
     from . import build
 
@@ -385,9 +579,19 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
     W = padded_width(c.M_t, c.M_l)
     shapes = {
         "f0": (f0, (B, T)), "kappa": (kappa, (B,)), "alpha": (alpha, (B,)),
-        "t60": (t60, (B, 2, 2)), "u1": (u1, (B, c.M_t)), "u2": (u2, (B, c.M_t)),
-        "z1": (z1, (B, c.M_l)), "z2": (z2, (B, c.M_l)),
+        "pos": (pos, (B,)), "t60": (t60, (B, 2, 2)), "u1": (u1, (B, c.M_t)),
+        "u2": (u2, (B, c.M_t)), "z1": (z1, (B, c.M_l)), "z2": (z2, (B, c.M_l)),
     }
+    for what, d in (("bow", bow), ("hammer", hammer)):
+        for key, x in (d or {}).items():
+            if not torch.is_tensor(x):
+                raise TypeError(f"{what}[{key!r}] must be a tensor on {f0.device}")
+            shape = (B, T) if key in ("x_b", "v_b", "F_b", "wid") else (B,)
+            if key == "mask" and x.dtype == torch.bool:
+                if x.device != f0.device or tuple(x.shape) != shape:
+                    raise ValueError(f"{what}['mask'] must be ({B},) on {f0.device}")
+                continue
+            shapes[f"{what}[{key!r}]"] = (x, shape)
     for name, (x, shape) in shapes.items():
         if x.device != f0.device:
             raise ValueError(f"{name} is on {x.device}, f0 on {f0.device}")
@@ -404,35 +608,39 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, t60, u1, u2, z1, z2):
         raise ValueError(f"grid width {W} exceeds one thread block (1024)")
 
     launch = build.load_kernel_library("string_step").string_step_launch
-    launch.argtypes = _LAUNCH_ARGTYPES
+    launch.argtypes = [ctypes.POINTER(_LaunchArgs), ctypes.c_void_p]
     launch.restype = ctypes.c_int
     opts = dict(dtype=torch.float32, device=f0.device)
-    uout = torch.empty((B, T), **opts)
-    zout = torch.empty((B, T), **opts)
-    carry = tuple(torch.empty((B, M), **opts)
-                  for M in (c.M_t, c.M_t, c.M_l, c.M_l))
+    out = {"uout": torch.empty((B, T), **opts), "zout": torch.empty((B, T), **opts)}
+    for name, M in (("u1_out", c.M_t), ("u2_out", c.M_t), ("z1_out", c.M_l),
+                    ("z2_out", c.M_l)):
+        out[name] = torch.empty((B, M), **opts)
+    if c.has_bow or c.has_hammer:
+        for name in ("v_r", "F_H", "u_H"):
+            out[name] = torch.empty((B, T), **opts)
     if c.collect_state:
-        state_u = torch.empty((T, B, c.M_t), **opts)
-        state_z = torch.empty((T, B, c.M_l), **opts)
-        su_ptr, sz_ptr = state_u.data_ptr(), state_z.data_ptr()
-    else:
-        su_ptr = sz_ptr = None
-    t60f = t60.reshape(B, 4)  # (freq1, time1, freq2, time2), contiguous view
+        out["state_u"] = torch.empty((T, B, c.M_t), **opts)
+        out["state_z"] = torch.empty((T, B, c.M_l), **opts)
+    exc = _excitation(f0, bow, hammer)  # views, masks as 0/1 floats
+    ptrs = dict(f0=f0, kappa=kappa, alpha=alpha, pos=pos,
+                t60=t60.reshape(B, 4),  # (freq1, time1, freq2, time2)
+                u1=u1, u2=u2, z1=z1, z2=z2, **exc, **out)
+    args = _LaunchArgs(
+        struct_size=ctypes.sizeof(_LaunchArgs), B=B, T=T, M_t=c.M_t, M_l=c.M_l,
+        W=W, M_t_sem=c.M_t_sem, coupling_iters=c.coupling_iters,
+        has_bow=c.has_bow, has_hammer=c.has_hammer, surface_integral=c.surface_integral,
+        k=c.k, theta=c.theta_t, lambda_c=c.lambda_c,
+        relative_error=c.relative_error,
+        **{name: x.data_ptr() for name, x in ptrs.items()},
+    )
     with torch.cuda.device(f0.device):
         stream = torch.cuda.current_stream(f0.device).cuda_stream
-        rc = launch(
-            f0.data_ptr(), kappa.data_ptr(), alpha.data_ptr(), t60f.data_ptr(),
-            u1.data_ptr(), u2.data_ptr(), z1.data_ptr(), z2.data_ptr(),
-            uout.data_ptr(), zout.data_ptr(),
-            *(x.data_ptr() for x in carry), su_ptr, sz_ptr,
-            B, T, c.M_t, c.M_l, W, c.M_t_sem, c.coupling_iters,
-            c.k, c.theta_t, c.lambda_c, stream,
-        )
+        rc = launch(ctypes.byref(args), stream)
     if rc != 0:
         raise RuntimeError(f"string_step launch failed: CUDA error {rc}")
-    string_chunked.launches += 1
-    aux = {"carry": carry}
-    if c.collect_state:
-        aux["state_u"] = state_u
-        aux["state_z"] = state_z
-    return uout, zout, aux
+    by_spec = string_chunked.launches_by_spec
+    by_spec[c.name] = by_spec.get(c.name, 0) + 1
+    aux = {"carry": tuple(out[n] for n in ("u1_out", "u2_out", "z1_out", "z2_out"))}
+    aux.update({n: out[n] for n in ("v_r", "F_H", "u_H", "state_u", "state_z")
+                if n in out})
+    return out["uout"], out["zout"], aux

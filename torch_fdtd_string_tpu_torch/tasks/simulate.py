@@ -1,5 +1,5 @@
-"""Dataset-generation task, pluck path: parameter draws, the fused string
-kernel, NaN/silence skip and the archival artifacts.
+"""Dataset-generation task: parameter draws, the fused string kernel,
+NaN/silence skip and the archival artifacts.
 
 PyTorch port of ``torch_fdtd_string_tpu/tasks/simulate.py`` (reference
 ``src/task/simulate.py``).  Per batch: numpy parameter draws
@@ -7,16 +7,18 @@ PyTorch port of ``torch_fdtd_string_tpu/tasks/simulate.py`` (reference
 the fused string kernel over all steps (``ops/string_kernel.py``), then the
 reference's artifact contract on disk per written item:
 ``output{,-u,-z}.wav``, ``simulation.npz`` (with the full ``state_u`` /
-``state_z`` fields), ``{string,bow,hammer}_params.npz`` and
-``simulation_config.yaml``; per run ``skip_stats.json`` and the timing log
-``gpu_time.txt`` (CUDA) or ``cpu_time.txt`` (CPU).
+``state_z`` fields and the ``v_r``/``F_H``/``u_H`` probe traces),
+``{string,bow,hammer}_params.npz`` and ``simulation_config.yaml``; per run
+``skip_stats.json`` and the timing log ``gpu_time.txt`` (CUDA) or
+``cpu_time.txt`` (CPU).  Plucked, bowed and hammered strings, and batches
+that mix them per string (``model.excitation=null``), all run through it.
 
-The device is chosen explicitly: CUDA when it is available and neither
-``proc.cpu`` nor ``task.precision=double`` is set, else the CPU, where the
-kernel's plain PyTorch version runs.  Not ported yet, and refused with
-``NotImplementedError``: bow/hammer excitations, MMS forcing, preset
-loading, fused preprocessing, the NaN rescue ladder, plots and writing
-during the process (see ROADMAP.md).
+The device is chosen explicitly: the CPU, where the kernel's plain PyTorch
+version runs, for ``proc.cpu=true`` or ``task.precision=double``; CUDA
+otherwise, and a host without a usable card raises.  Not ported yet, and
+refused with ``NotImplementedError``: MMS forcing, preset loading, fused
+preprocessing, the NaN rescue ladder, plots and writing during the process
+(see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -39,9 +41,14 @@ from ..utils import wav as wavio
 
 
 def select_device(cpu=False, precision="single"):
-    """CUDA unless the run asks for the CPU or for double precision."""
-    if cpu or precision == "double" or not torch.cuda.is_available():
+    """The CPU for ``proc.cpu=true`` or double precision, else CUDA; raises
+    when CUDA is asked for and the host has no usable card."""
+    if cpu or precision == "double":
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "a single-precision run needs a CUDA card and torch finds none; "
+            "pass proc.cpu=true (or task.precision=double) to run on the CPU")
     return torch.device("cuda")
 
 
@@ -49,9 +56,12 @@ def _not_ported(what, item):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
-def kernel_inputs(state, consts: SimConsts, Nt, device):
+def kernel_inputs(state, consts: SimConsts, Nt, device, bow=None, hammer=None,
+                  bow_mask=None, hammer_mask=None):
     """Positional tensors and keyword arguments of the batch's
-    :func:`string_chunked` call: steps 2..Nt-1, run dtype, on ``device``."""
+    :func:`string_chunked` call: steps 2..Nt-1, run dtype, on ``device``.
+    The ``bow`` / ``hammer`` dicts are built as the JAX package builds them
+    (its ``_process_pallas``) when ``consts`` has that excitation."""
     dtype = torch.float64 if state.u0.dtype == np.float64 else torch.float32
 
     def to(x):
@@ -68,6 +78,10 @@ def kernel_inputs(state, consts: SimConsts, Nt, device):
     kwargs = dict(
         k=consts.k, theta_t=consts.theta_t, lambda_c=consts.lambda_c,
         M_t=consts.M_t, M_l=consts.M_l,
+        # sweep cap: the kernel's 24 reaches f32's tolerance; f64's is 2**29
+        # times tighter, and after a bow's stick-slip switch has halved the
+        # relaxation (~0.46 per sweep) it takes ~35 sweeps to reach it
+        coupling_iters=24 if dtype == torch.float32 else 64,
         surface_integral=consts.surface_integral,
         collect_state=consts.collect_state,
         relative_error=consts.relative_error,
@@ -75,31 +89,51 @@ def kernel_inputs(state, consts: SimConsts, Nt, device):
         # poison-only first pass: untrusted coupling exits become NaN
         gmres_rescue=False,
     )
+    if consts.has_bow or consts.has_hammer:
+        # the initial hammer displacements: uH1 the newer row (step 1)
+        uH = dict(uH1=to(hammer.u_H[:, 1]), uH2=to(hammer.u_H[:, 0]))
+        mask = lambda m: torch.as_tensor(np.asarray(m, bool), device=device)
+    if consts.has_bow:
+        kwargs["bow"] = dict(
+            x_b=to(bow.x_b[:, 2:Nt]), v_b=to(bow.v_b[:, 2:Nt]),
+            F_b=to(bow.F_b[:, 2:Nt]), wid=to(bow.wid[:, 2:Nt]),
+            phi_0=to(bow.phi_0), phi_1=to(bow.phi_1), mask=mask(bow_mask), **uH,
+        )
+    if consts.has_hammer:
+        kwargs["hammer"] = dict(
+            x_H=to(hammer.x_H), w_H=to(hammer.w_H), M_r=to(hammer.M_r),
+            alpha=to(hammer.alpha), mask=mask(hammer_mask), **uH,
+        )
     return args, kwargs
 
 
-def process(state, hammer, consts: SimConsts, Nt, device):
+def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
+            device):
     """Run one batch through the fused string kernel (steps 2..Nt-1).
 
     Returns numpy ``(uout, zout, state_u, state_z, v_r, F_H, u_H, sig0,
     sig1)``; the state fields are ``(B, Nt, M)`` with the two initial rows
     first, or ``None`` without ``consts.collect_state``.
     """
-    if consts.has_bow or consts.has_hammer:
-        _not_ported("bow and hammer excitation", "Queue 1 item 5")
-    args, kwargs = kernel_inputs(state, consts, Nt, device)
+    args, kwargs = kernel_inputs(state, consts, Nt, device, bow, hammer,
+                                 bow_mask, hammer_mask)
     uout_d, zout_d, aux = string_chunked(*args, **kwargs)
     np_dt = state.u0.dtype
     B, T = uout_d.shape
     uout = uout_d.cpu().numpy()
     zout = zout_d.cpu().numpy()
-    # excitation-free run: zero probe traces and the free ballistic hammer
-    # ramp in closed form (engine fast-path semantics)
-    vstep = hammer.u_H[:, 1] - hammer.u_H[:, 0]
-    n = np.arange(1, T + 1)[None, :]
-    u_H = ((hammer.u_H[:, 1][:, None] + n * vstep[:, None]) / consts.k).astype(np_dt)
-    v_r = np.zeros((B, T), np_dt)
-    F_H = np.zeros((B, T), np_dt)
+    if consts.has_bow or consts.has_hammer:
+        v_r = aux["v_r"].cpu().numpy()
+        F_H = aux["F_H"].cpu().numpy()
+        u_H = aux["u_H"].cpu().numpy() / consts.k
+    else:
+        # excitation-free run: zero probe traces and the free ballistic
+        # hammer ramp in closed form (engine fast-path semantics)
+        vstep = hammer.u_H[:, 1] - hammer.u_H[:, 0]
+        n = np.arange(1, T + 1)[None, :]
+        u_H = ((hammer.u_H[:, 1][:, None] + n * vstep[:, None]) / consts.k).astype(np_dt)
+        v_r = np.zeros((B, T), np_dt)
+        F_H = np.zeros((B, T), np_dt)
     gamma = 2.0 * state.f0[:, -1]
     sig0, sig1 = audio.T60_to_sigma(state.T60, gamma, state.kappa * gamma)
     if not consts.collect_state:
@@ -181,7 +215,8 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
         manufactured=manufactured, collect_state=collect_state,
     )
     device = select_device(cpu, precision)
-    results = process(string, hammer, consts, int(length * sr), device)
+    results = process(string, bow, hammer, bow_mask, hammer_mask, consts,
+                      int(length * sr), device)
     k = 1.0 / sr
     return (results, (string, bow, hammer, [k, theta_t, lambda_c], consts),
             (bow_mask, hammer_mask, pluck_mask), device)
