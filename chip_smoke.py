@@ -15,8 +15,12 @@ Phases; any failure exits non-zero:
    batch (B=24), (e) the first ``model.excitation=null`` batch (B=24, bowed,
    hammered and plucked strings), (f) draw (a) with the interpolated
    pickup readout, (g)-(i) draws (c)-(e) with the pickup readout and (j)
-   the first batch of phase 8; the probe traces are compared too;
-4. the main path: ``python -m torch_fdtd_string_tpu_torch.run
+   the first batch of phase 8; the probe traces are compared too.  The
+   width-bucketed launch against its plain version and against the
+   unbucketed kernel: (k) the first nsynth-like batch (B=24, one group),
+   (l) the first batch of the corpus recipe (B=48, several groups), (m) a
+   B=48 ``model.excitation=null`` batch; each group's width, size and time;
+4. the classic path: ``python -m torch_fdtd_string_tpu_torch.run
    experiment=nsynth-like task.fuse_preprocess=false`` for one full batch of
    24 one-second plucked strings, checked artifact by artifact;
 5. the same with ``model.excitation=null``: 24 one-second strings, each
@@ -25,11 +29,20 @@ Phases; any failure exits non-zero:
    (``model.excitation=bow``, 16 one-second strings);
 7. the hammered path (``model.excitation=hammer``, 24 one-second strings);
 8. the pickup readout (``task.surface_integral=false``, 4 plucked strings of
-   0.25 s).
+   0.25 s);
+9. the headline: ``python -m torch_fdtd_string_tpu_torch.run
+   experiment=nsynth-like task.num_samples=24`` (fused preprocessing, the
+   config's default): every prepared item's wavs and keys, every item from
+   the on-device post-processing, the device-to-host bytes against the
+   state field's, two items against a host ``build_processed`` of their
+   native-width state, the writer phases' times;
+10. the corpus recipe at B=48 (``tools/gen_watchdog.py``'s train split):
+   8 kept columns per item, compact keys, no run-dir wavs, audio-s/s.
 
-Phases 4-8 each set the launch counts to 0 just before the run and read
+Phases 4-10 each set the launch counts to 0 just before the run and read
 them just after.  The line before the last is the kernels' JSON record, one
-entry per specialization; the last line is ``{"ok": true, "device": {...}}``.
+entry per specialization and one for the bucketed launch; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -70,15 +83,48 @@ PICKUP = ["task.surface_integral=false"]
 # integral's velocity, below the silence gate
 PICKUP4 = NSYNTH[:2] + PICKUP + ["task.num_samples=4", "task.batch_size=4",
                                  "task.length=0.25", "task.skip_silence=false"]
+# parameters.npz of a prepared item: the headline run (readout copies and
+# the modal baseline) and the corpus recipe (compact); the CPU test
+# tests/test_torch_simulate_fused.py holds both to the JAX package's items
+PREP_KEYS = [
+    "F_B", "F_H_out", "M_H", "Nx_l", "Nx_t", "T60", "a_H", "alpha", "bow_mask",
+    "f0", "gain", "hammer_mask", "kappa", "mode_amps", "mode_freq", "p_a",
+    "ph0_B", "ph1_B", "pluck_mask", "pos", "sig0", "sig1", "t", "target_f0",
+    "u0", "u_H", "u_H_out", "ua_f0", "uout", "ut_f0", "v_B", "v_H", "v_r_out",
+    "w_H", "wid_B", "x", "x_B", "x_H", "zout",
+]
+PREP_KEYS_CORPUS = [
+    "M_H", "T60", "a_H", "alpha", "bow_mask", "f0", "gain", "hammer_mask",
+    "kappa", "mode_amps", "mode_freq", "p_a", "ph0_B", "ph1_B", "pluck_mask",
+    "pos", "sig0", "sig1", "t", "u0", "ut_f0", "w_H", "x", "x_H",
+]
+# phase 9, the README's headline: fused preprocessing is the config's default
+FUSED = ["experiment=nsynth-like", "task.num_samples=24"]
+# phase 10, the corpus recipe (tools/gen_watchdog.py:31-47, bench.py:361-373)
+CORPUS48 = [
+    "experiment=nsynth-like", "task.num_samples=48", "task.batch_size=48",
+    "task.save=false", "task.skip_silence=true", "task.rescue_nan=false",
+    "task.save_x_stride=32", "task.save_modal=false",
+    "task.save_output_wav=false", "task.save_x_offset_jitter=true",
+    "task.save_compact_params=true",
+]
 KERNEL_SRC = "torch_fdtd_string_tpu_torch/csrc/string_step.cu"
-# the TPU kernel's branch each specialization ports
+# the TPU kernel's branch each specialization ports, and its bucketed launcher
 REPLACES = {
     "pluck": "torch_fdtd_string_tpu/ops/pallas_step.py:113",
     "bow": "torch_fdtd_string_tpu/ops/pallas_step.py:418",
     "hammer": "torch_fdtd_string_tpu/ops/pallas_step.py:437",
     "mix": "torch_fdtd_string_tpu/ops/pallas_step.py:452",
     "pluck-pickup": "torch_fdtd_string_tpu/ops/pallas_step.py:775",
+    "bucketed": "torch_fdtd_string_tpu/ops/pallas_step.py:999",
 }
+# NVIDIA H100 SXM data sheet: HBM rate, float32 rate outside the tensor cores
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
+# float operations per live grid point, counted in csrc/string_step.cu: the
+# per-step RHS, stencils, interpolations and tridiagonal coefficients; per
+# sweep the z interpolation, relaxation and residuals, and two PCR solves
+# of 4 + 14 per level each
+OPS_STEP, OPS_SWEEP, OPS_PCR_LEVEL = 145, 46, 28
 
 
 def smi():
@@ -220,6 +266,52 @@ def compare(tag, got, ref):
     return worst
 
 
+def bound(args, kwargs, sweeps):
+    """The least time (ms) the card could take for this string-step call,
+    and what bounds it: every input read once and every output written
+    once at the HBM rate, or this run's float operations (the plain
+    version's sweep counts on the same inputs) at the float32 rate."""
+    from torch_fdtd_string_tpu_torch.ops.string_kernel import grid_bounds, pcr_levels
+
+    f0 = args[0]
+    B, T = f0.shape
+    M_t, M_l = kwargs["M_t"], kwargs["M_l"]
+    exc = [x for d in (kwargs.get("bow"), kwargs.get("hammer")) if d for x in d.values()]
+    n_in = sum(x.numel() * x.element_size() for x in list(args) + exc)
+    n_out = 4 * (2 * B * T + 2 * B * (M_t + M_l) + T * B * (M_t + M_l)
+                 + (3 * B * T if exc else 0))
+    bt, bl = grid_bounds(f0.amin(dim=1).cpu().numpy(), args[1].cpu().numpy(),
+                         args[2].cpu().numpy(), kwargs["k"], kwargs["theta_t"],
+                         kwargs["lambda_c"])
+    lanes = np.maximum(bt, bl) - 1  # live grid points, N + 1
+    levels = np.array([pcr_levels(int(n)) for n in lanes])
+    n_sweeps = sweeps.sum(dim=0).cpu().numpy()
+    ops = float(np.sum(lanes * (T * OPS_STEP
+                                + n_sweeps * (OPS_SWEEP + OPS_PCR_LEVEL * levels))))
+    t_bytes = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def within_groups(out, groups):
+    """An unbucketed result with each string's state and carry lanes past
+    its bucket's width set to 0, as the bucketed launch leaves them: the
+    unbucketed kernel writes those lanes too, 0 for a healthy string and
+    NaN for a poisoned one."""
+    uout, zout, aux = out
+    aux = dict(aux)
+    for key in ("state_u", "state_z"):
+        aux[key] = aux[key].clone()
+        for w, rows in groups:
+            aux[key][:, torch.as_tensor(rows, device=uout.device), w:] = 0.0
+    return uout, zout, aux
+
+
+def host_bounds(args):
+    """Host copies of a call's f0, kappa and alpha, for the bucketing."""
+    return tuple(x.cpu().numpy() for x in args[:3])
+
+
 def spectral_peak(x, sr):
     spec = np.abs(np.fft.rfft(x * np.hanning(len(x))))
     return float(np.fft.rfftfreq(len(x), 1.0 / sr)[np.argmax(spec[1:]) + 1])
@@ -307,19 +399,139 @@ def drive(phase, what, overrides, spec, card):
                                audio_s=audio_s)
 
 
+def drive_fused(phase, what, overrides, keys, n_cols, card):
+    """One fused run through the CLI entry point (launch counts set to 0
+    just before, read just after).  Every prepared item is checked: its
+    ``n_cols`` ut wavs (and as many ua wavs with the modal baseline),
+    ``vt.wav`` and the ``parameters.npz`` keys ``keys``; every written item
+    must come from the on-device post-processing; the device-to-host bytes
+    are held against the state field's.  Returns the run's stats."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.ops.string_kernel import (
+        reset_launch_counts,
+        string_chunked,
+        string_chunked_bucketed,
+    )
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    save_name = f"chip_smoke_{phase}"
+    root_dir = os.path.join(ROOT, "results")
+    for d in (save_name, save_name + "-prep"):
+        shutil.rmtree(os.path.join(root_dir, d), ignore_errors=True)
+    task = compose(port_run.CONFIG_DIR, overrides).task
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    save_dir = port_run.main(overrides + [
+        f"task.root_dir={root_dir}", f"task.save_name={save_name}",
+        "task.randomize_name=false",
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = string_chunked_bucketed.launches
+    print(f"[{phase}] {what}: bucketed group launches {launches}, by "
+          f"specialization {dict(string_chunked.launches_by_spec)}, wall {wall:.2f} s")
+    if launches < 1:
+        raise AssertionError(f"[{phase}] the bucketed launch did not run")
+    with open(os.path.join(save_dir, "skip_stats.json")) as f:
+        stats = json.load(f)
+    written = sum(b["written"] for b in stats["batches"])
+    prep = save_dir + "-prep"
+    items = sorted(d for d in os.listdir(prep) if os.path.isdir(os.path.join(prep, d)))
+    if len(items) != written or written < 1:
+        raise AssertionError(f"[{phase}] {len(items)} prepared items, {written} written")
+    timing = stats["save_timing"]
+    if timing["assemble"]["n"] != written or "host_build" in timing:
+        raise AssertionError(f"[{phase}] items not all from the device path: {timing}")
+    n_ua = n_cols if "ua_f0" in keys else 0
+    for d in items:
+        names = os.listdir(os.path.join(prep, d))
+        n_ut = sum(n.startswith("ut-") for n in names)
+        n_ua_got = sum(n.startswith("ua-") for n in names)
+        if n_ut != n_cols or n_ua_got != n_ua or "vt.wav" not in names:
+            raise AssertionError(f"[{phase}] {d}: {n_ut} ut, {n_ua_got} ua wavs, "
+                                 f"vt.wav {'vt.wav' in names}")
+        z = np.load(os.path.join(prep, d, "parameters.npz"))
+        if sorted(z.files) != sorted(keys):
+            raise AssertionError(f"[{phase}] {d}: keys {sorted(z.files)}")
+        for key in z.files:
+            if z[key].dtype.kind == "f" and not np.isfinite(z[key]).all():
+                raise AssertionError(f"[{phase}] {d}: {key} not finite")
+    run_items = [d for d in os.listdir(save_dir)
+                 if os.path.isdir(os.path.join(save_dir, d)) and d != "codes"]
+    B = int(task.batch_size)
+    n = int(task.num_samples // B) * B
+    state_bytes = stats["state_bytes"]
+    with open(os.path.join(save_dir, "gpu_time.txt")) as f:
+        sim_s = sum(float(line.split("\t")[1]) for line in f)
+    phases = ", ".join(f"{k} {v['total_s']:.2f} s ({v['n']}x)" for k, v in timing.items())
+    print(f"[{phase}] {written} of {n} items prepared, every one from the device "
+          f"post-processing; width spread per batch {stats['width_spread']}; "
+          f"run-dir items {len(run_items)}; NaN skips "
+          f"{sum(b['nan_final'] for b in stats['batches'])}, silence skips "
+          f"{sum(b['silent'] for b in stats['batches'])}")
+    print(f"[{phase}] device-to-host {stats['link_bytes']} bytes against a state "
+          f"field of {state_bytes} bytes ({stats['link_bytes'] / state_bytes:.4f})")
+    if not stats["link_bytes"] < 0.5 * state_bytes:
+        raise AssertionError(f"[{phase}] the pulls are not far below the state field")
+    print(f"[{phase}] whole run {wall:.2f} s for {n * task.length:g} audio-s = "
+          f"{n * task.length / wall:.2f} audio-s/s; simulate() {sim_s:.2f} s; writer "
+          f"threads: {phases} [{card}]")
+    return dict(wall=wall, launches=launches, items=items, save_dir=save_dir,
+                run_items=run_items, audio_s=n * task.length, task=task)
+
+
+def check_host_build(args, kwargs, prep, items, task, card):
+    """Two prepared items' ut wavs (device post-processing, f16, PCM_24)
+    against ``build_processed`` on the host from the same strings'
+    native-width state, recomputed by the same kernel: within 5e-4 of the
+    peak (the f16 rounding) plus one PCM_24 step."""
+    from torch_fdtd_string_tpu_torch.ops.string_kernel import string_chunked_bucketed
+    from torch_fdtd_string_tpu_torch.tasks import process_training_data as ptd
+    from torch_fdtd_string_tpu_torch.tasks import simulate
+    from torch_fdtd_string_tpu_torch.utils import wav as wavio
+
+    theta = simulate.task_kwargs(task)["theta_t"]
+    _, _, aux = string_chunked_bucketed(*args, host_bounds=host_bounds(args), **kwargs)
+    su = aux["state_u"]
+    for d in items[:2]:
+        b = int(d.split("-")[1])
+        z = np.load(os.path.join(prep, d, "parameters.npz"))
+        w = int(z["Nx_t"].max()) + 1
+        head = torch.stack([args[6][b, :w], args[5][b, :w]])
+        state = torch.cat([head, su[:, b, :w]]).cpu().numpy()
+        item = ptd.build_processed(
+            {"state_u": state}, {"f0": z["f0"], "kappa": z["kappa"], "T60": z["T60"]},
+            {"phi_0": 0.0, "phi_1": 0.0, "wid_B": 0.0}, {"M_r": 0.0, "alpha": 0.0},
+            theta, task.lambda_c, SR, 256, strict=False, device_synth=False)
+        ut = item["ut"]
+        dev = np.stack([np.asarray(wavio.read(os.path.join(prep, d, f"ut-{x}.wav"))[0],
+                                   np.float64).reshape(-1) for x in range(256)], axis=1)
+        err = float(np.abs(dev - ut).max())
+        peak = float(np.abs(ut).max())
+        print(f"[9] item {d}: device ut vs host build_processed of its native-width "
+              f"state (w={w}): max abs err {err:.3e}, peak {peak:.3e} "
+              f"({err / peak:.2e} of it) [{card}]")
+        if not err <= 5e-4 * peak + 1.0 / 8388607:
+            raise AssertionError(f"[9] item {d}: device ut off the host build")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from torch_fdtd_string_tpu_torch.ops import build
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
     from torch_fdtd_string_tpu_torch.ops.string_kernel import (
         string_chunked,
+        string_chunked_bucketed,
+        string_chunked_bucketed_reference,
         string_chunked_reference,
     )
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # ---- 1. device report --------------------------------------------------
     card = smi()
@@ -369,10 +581,12 @@ def main():
         ref, plain_ms = timed_once(lambda: string_chunked_reference(*args, **kwargs))
         worst = compare(tag, got, ref)
         ms = cuda_ms(lambda: string_chunked(*args, **kwargs), reps=10)
-        print(f"[3] {tag}: per 256 steps kernel {ms:.3f} ms, plain {plain_ms:.1f} ms "
-              f"[{card}]")
+        bound_ms, bound_by = bound(args, kwargs, ref[2]["sweeps"])
+        print(f"[3] {tag}: per 256 steps kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}) [{card}]")
         # the JSON record keeps the last shape of each specialization
-        record[spec] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+        record[spec] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     args, kwargs = truncate(shape_b, 2048)
     g = string_chunked(*args, **kwargs)[2]["state_u"]
     r = string_chunked_reference(*args, **kwargs)[2]["state_u"]
@@ -381,17 +595,68 @@ def main():
     print(f"[3] (b) after 2048 steps: max |kernel - plain| / max|plain| of "
           f"state_u = {div:.3e} (recorded, not asserted)")
 
-    # ---- 4-8. the main paths ----------------------------------------------------
+    # the width-bucketed launch: against its plain version and the unbucketed
+    # kernel, per group and whole
+    shape_k = nsynth_inputs(FUSED, dev)
+    shape_l = nsynth_inputs(CORPUS48, dev)
+    for tag, inputs in (("(k) nsynth-like B=24", shape_k),
+                        ("(l) corpus recipe B=48", shape_l),
+                        ("(m) model.excitation=null B=48", nsynth_inputs(CORPUS48 + MIX, dev))):
+        args, kwargs = truncate(inputs, 256)
+        hb = host_bounds(args)
+        rest = {key: v for key, v in kwargs.items() if key not in ("M_t", "M_l")}
+        groups = sk.bucket_groups(*hb, k=kwargs["k"], theta_t=kwargs["theta_t"],
+                                  lambda_c=kwargs["lambda_c"], M_t=kwargs["M_t"],
+                                  M_l=kwargs["M_l"])
+        W = sk.padded_width(kwargs["M_t"], kwargs["M_l"])
+        print(f"[3] {tag}: B={args[0].shape[0]}, M_t={kwargs['M_t']}, "
+              f"M_l={kwargs['M_l']}, unbucketed width {W}, groups "
+              f"{[(w, len(rows)) for w, rows in groups]}, T=256")
+        bucketed = lambda: string_chunked_bucketed(*args, host_bounds=hb, **kwargs)
+        got = bucketed()
+        ref, plain_ms = timed_once(
+            lambda: string_chunked_bucketed_reference(*args, host_bounds=hb, **kwargs))
+        worst = compare(tag, got, ref)
+        compare(f"{tag} vs unbucketed kernel", got,
+                within_groups(string_chunked(*args, **kwargs), groups))
+        ms = cuda_ms(bucketed, reps=10)
+        flat_ms = cuda_ms(lambda: string_chunked(*args, **kwargs), reps=10)
+        # one group alone, at its width and at the unbucketed width (the
+        # launcher's internals: no public call runs a single group)
+        c = sk._consts(M_t=kwargs["M_t"], M_l=kwargs["M_l"], M_t_sem=None,
+                       **sk._kernel_kw(rest))
+        for w, rows in groups:
+            g_ms, g_flat_ms = (cuda_ms(lambda: sk._launch_cuda(
+                c, *args, kwargs.get("bow"), kwargs.get("hammer"),
+                groups=[(width, rows)]), reps=5) for width in (w, W))
+            print(f"[3] {tag}: group width {w}, {len(rows)} strings alone: "
+                  f"{g_ms:.3f} ms per 256 steps, {g_flat_ms:.3f} ms at width {W} "
+                  f"[{card}]")
+        bound_ms, bound_by = bound(args, kwargs, ref[2]["sweeps"])
+        print(f"[3] {tag}: per 256 steps bucketed {ms:.3f} ms, unbucketed "
+              f"{flat_ms:.3f} ms, plain (bucketed) {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}) [{card}]")
+        if tag.startswith("(k)"):
+            record["bucketed"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      library_ms=None)
+    print(f"[3] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 4-8. the classic paths -------------------------------------------------
     launches = {}
     launches["pluck"], pluck = drive(4, "nsynth-like, plucked", NSYNTH, "pluck", card)
     if pluck["pitched"] < 1:
         raise AssertionError("no item's spectral peak is within 3% of target_f0")
-    for spec, (args, kwargs) in (("pluck", shape_b), ("bow", shape_c)):
+    for tag, (args, kwargs) in (("pluck B=24", shape_b), ("bow B=16", shape_c),
+                                ("corpus B=48", shape_l)):
         B, T = args[0].shape
-        kernel_ms = cuda_ms(lambda: string_chunked(*args, **kwargs), reps=1)
-        print(f"[4] {spec} kernel alone at B={B}, T={T}: {kernel_ms:.1f} ms = "
-              f"{B / (kernel_ms / 1e3):.1f} audio-s/s, "
-              f"{B * T / (kernel_ms / 1e3):.4g} string-steps/s [{card}]")
+        hb = host_bounds(args)
+        flat_ms = cuda_ms(lambda: string_chunked(*args, **kwargs), reps=1)
+        ms = cuda_ms(lambda: string_chunked_bucketed(*args, host_bounds=hb, **kwargs),
+                     reps=1)
+        print(f"[4] {tag} kernel alone at T={T}: unbucketed {flat_ms:.1f} ms, "
+              f"bucketed {ms:.1f} ms = {B / (ms / 1e3):.1f} audio-s/s, "
+              f"{B * T / (ms / 1e3):.4g} string-steps/s [{card}]")
 
     launches["mix"], mix = drive(5, "nsynth-like, model.excitation=null",
                                  NSYNTH + MIX, "mix", card)
@@ -407,6 +672,31 @@ def main():
                                   NSYNTH + HAMMER, "hammer", card)
     launches["pluck-pickup"], _ = drive(8, "nsynth-like, pickup readout", PICKUP4,
                                         "pluck-pickup", card)
+
+    # ---- 9. the headline: fused preprocessing -----------------------------------
+    # the modal solution's root table, built on first use in a checkout; built
+    # here so that the headline's wall shows a run with the table in place
+    from torch_fdtd_string_tpu_torch.core import analytic
+
+    t0 = time.perf_counter()
+    analytic.root_tables()
+    print(f"[9] root table ready in {time.perf_counter() - t0:.2f} s (sweep build "
+          f"{analytic.table_build_seconds.get(257, 0.0):.2f} s) [{card}]")
+    head = drive_fused(9, "nsynth-like (fused preprocessing, the default)", FUSED,
+                       PREP_KEYS, 256, card)
+    launches["bucketed"] = head["launches"]
+    check_host_build(*shape_k, head["save_dir"] + "-prep", head["items"],
+                     head["task"], card)
+
+    # ---- 10. the corpus recipe at B=48 ------------------------------------------
+    corpus = drive_fused(10, "corpus recipe B=48", CORPUS48, PREP_KEYS_CORPUS, 8, card)
+    if corpus["run_items"]:
+        raise AssertionError(f"[10] run-dir items written: {corpus['run_items'][:3]}")
+    if corpus["launches"] < 2:
+        raise AssertionError(f"[10] {corpus['launches']} bucket group(s), not 2 or more")
+    print(f"[10] corpus recipe B=48: {corpus['audio_s'] / corpus['wall']:.2f} "
+          f"audio-s/s end to end [{card}]")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [dict(
         name=f"string_step[{spec}]", route="cuda", source=KERNEL_SRC,

@@ -203,17 +203,17 @@ def test_specialization_names():
 
 
 def test_launch_args_layout():
-    """The ctypes mirror of csrc/string_step.cu::LaunchArgs: 11 ints, 4
-    doubles, 34 pointers, natural alignment (the kernel compares
-    struct_size with its own sizeof)."""
+    """The ctypes mirror of csrc/string_step.cu::LaunchArgs: 14 ints, 4
+    doubles, 35 pointers (the bucketed launch's row map first), natural
+    alignment (the kernel compares struct_size with its own sizeof)."""
     import ctypes
     import re
 
     fields = sk._LaunchArgs._fields_
-    assert [f[1] for f in fields] == ([ctypes.c_int] * 11 + [ctypes.c_double] * 4
-                                      + [ctypes.c_void_p] * 34)
-    # 11 ints pad to 48 bytes before the first double
-    assert ctypes.sizeof(sk._LaunchArgs) == 48 + 4 * 8 + 34 * 8
+    assert [f[1] for f in fields] == ([ctypes.c_int] * 14 + [ctypes.c_double] * 4
+                                      + [ctypes.c_void_p] * 35)
+    # 14 ints fill 56 bytes, already aligned for the first double
+    assert ctypes.sizeof(sk._LaunchArgs) == 56 + 4 * 8 + 35 * 8
     src = open(sk.__file__.replace("ops/string_kernel.py", "csrc/string_step.cu")).read()
     body = src[src.index("struct LaunchArgs {"):]
     body = body[: body.index("};")]

@@ -117,6 +117,12 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import torch_fdtd_string_tpu_torch.tasks.simulate\n"
+        "import torch_fdtd_string_tpu_torch.tasks.process_training_data\n"
+        "import torch_fdtd_string_tpu_torch.ops.postproc\n"
+        "import torch_fdtd_string_tpu_torch.ops.modal\n"
+        "import torch_fdtd_string_tpu_torch.core.analytic\n"
+        "import torch_fdtd_string_tpu_torch.utils.data\n"
+        "import torch_fdtd_string_tpu_torch.utils.frequency\n"
         "import torch_fdtd_string_tpu_torch.run\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or m.split('.')[0] == 'torch_fdtd_string_tpu')\n"
@@ -130,7 +136,6 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("override,what", [
-    ("task.fuse_preprocess=true", "fused preprocessing"),
     ("task.rescue_nan=true", "rescue ladder"),
     ("task.plot=true", "plots"),
 ])

@@ -35,6 +35,18 @@
 // coalesced.  Making it fast (several strings per CTA, warp-level PCR with
 // shuffles, fewer barriers) is later work.
 //
+// Width buckets (replaces pallas_step.py::string_chunked_bucketed and
+// _build_bucketed_fn): a launch may run a subset of a batch at a narrower
+// block width.  `rows` maps each CTA to its row of the full batch, and the
+// row strides ld_t / ld_l and the state's batch size B_rows are the full
+// batch's, so each CTA reads its string's inputs and writes its outputs,
+// traces and state rows in place: no gather or scatter copy of the (T, B, M)
+// field.  M_t / M_l are the lanes this launch reads and writes; M_t_sem is
+// the allocation's M_t, which sets the z live-row count and the bow's
+// spatial axis, so a string's result does not depend on its bucket beyond
+// the order of the block reductions.  ops/string_kernel.py launches one
+// group per stream.
+//
 // Entry point: string_step_launch (plain C, loaded with ctypes) takes a
 // LaunchArgs struct and returns the cudaError_t of the launch.
 
@@ -53,10 +65,17 @@
 // Outputs: uout, zout and, with an excitation, the probe traces v_r, F_H,
 // u_H are (B, T); the final carry u1_out, u2_out (B, M_t), z1_out, z2_out
 // (B, M_l); state_u (T, B, M_t) and state_z (T, B, M_l), or both null.
+// B is the number of strings (CTAs) of this launch.  With `rows` set, CTA j
+// runs row rows[j] of arrays whose batch size is B_rows: the shapes above
+// then read B_rows for B, and the u-arrays (u1, u2, u1_out, u2_out, state_u
+// rows) have the row stride ld_t >= M_t, the z-arrays ld_l >= M_l.  Without
+// `rows`, B_rows = B, ld_t = M_t and ld_l = M_l.
 struct LaunchArgs {
   int struct_size, B, T, M_t, M_l, W, M_t_sem, coupling_iters;
   int has_bow, has_hammer, surface_integral;
+  int B_rows, ld_t, ld_l;
   double k, theta, lambda_c, relative_error;
+  const int *rows;
   const float *f0, *kappa, *alpha, *pos, *t60, *u1, *u2, *z1, *z2;
   const float *x_b, *v_b, *F_b, *wid, *phi_0, *phi_1, *bmask;
   const float *x_H, *w_H, *M_r, *alpha_H, *hmask, *uH1, *uH2;
@@ -72,7 +91,7 @@ namespace {
 struct Params : LaunchArgs {
   int levels;
   float k_f, k2, k4, theta_f, c_half, c_a0, two_t, two_two_t, lambda_f, two_pi;
-  float ln10_6, inner_eps, M_t_f;
+  float ln10_6, inner_eps, M_t_sem_f;
 };
 
 constexpr float kOmegaFloor = 0.0625f;
@@ -189,7 +208,8 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   constexpr int kStepSums = (kBow ? 1 : 0) + (kHammer ? 2 : 0);
   constexpr int kSweepSums = (kBow ? 1 : 0) + (kHammer ? 1 : 0);
   extern __shared__ float sm[];
-  const int W = blockDim.x, i = threadIdx.x, b = blockIdx.x;
+  const int W = blockDim.x, i = threadIdx.x;
+  const int b = p.rows != nullptr ? p.rows[blockIdx.x] : blockIdx.x;  // batch row
   const int T = p.T;
   const float itf = static_cast<float>(i);
 
@@ -211,10 +231,10 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   float* sRc = sm + kNumArrays * W;  // bow force profile (bow only)
   float* sred = sm + (kNumArrays + (kBow ? 1 : 0)) * W;
 
-  su1[i] = i < p.M_t ? p.u1[(size_t)b * p.M_t + i] : 0.0f;
-  su2[i] = i < p.M_t ? p.u2[(size_t)b * p.M_t + i] : 0.0f;
-  sz1[i] = i < p.M_l ? p.z1[(size_t)b * p.M_l + i] : 0.0f;
-  sz2[i] = i < p.M_l ? p.z2[(size_t)b * p.M_l + i] : 0.0f;
+  su1[i] = i < p.M_t ? p.u1[(size_t)b * p.ld_t + i] : 0.0f;
+  su2[i] = i < p.M_t ? p.u2[(size_t)b * p.ld_t + i] : 0.0f;
+  sz1[i] = i < p.M_l ? p.z1[(size_t)b * p.ld_l + i] : 0.0f;
+  sz2[i] = i < p.M_l ? p.z2[(size_t)b * p.ld_l + i] : 0.0f;
   const float kappa = p.kappa[b], alpha = p.alpha[b];
   const float freq1 = p.t60[4 * b], time1 = p.t60[4 * b + 1];
   const float freq2 = p.t60[4 * b + 2], time2 = p.t60[4 * b + 3];
@@ -361,13 +381,13 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
         v_b = p.v_b[bt];
         F_b = p.F_b[bt];
         const float wid_b = p.wid[bt] * h_t;
-        const float xax = (itf + 1.0f) / p.M_t_f;
+        const float xax = (itf + 1.0f) / p.M_t_sem_f;
         const float nmin1 = N_t - 1.0f;
-        const float ctr = p.x_b[bt] * nmin1 / p.M_t_f;
-        const float wd = wid_b * nmin1 / p.M_t_f;
+        const float ctr = p.x_b[bt] * nmin1 / p.M_t_sem_f;
+        const float wd = wid_b * nmin1 / p.M_t_sem_f;
         const float ind = nan_sign(nan_max(-(xax - ctr - wd / 2.0f) * (xax - ctr + wd / 2.0f), 0.0f));
         rc = 0.5f * ind * (1.0f + cosf(p.two_pi * (xax - ctr) / wd));
-        rc = rc * (i < p.M_t ? 1.0f : 0.0f);
+        rc = rc * (i < p.M_t_sem ? 1.0f : 0.0f);
         r[j++] = fabsf(rc);
       }
       if constexpr (kHammer) {
@@ -516,8 +536,8 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       uH1 = u_H;
     }
     if (p.state_u != nullptr) {
-      if (i < p.M_t) p.state_u[((size_t)t * p.B + b) * p.M_t + i] = u_n;
-      if (i < p.M_l) p.state_z[((size_t)t * p.B + b) * p.M_l + i] = z_n;
+      if (i < p.M_t) p.state_u[((size_t)t * p.B_rows + b) * p.ld_t + i] = u_n;
+      if (i < p.M_l) p.state_z[((size_t)t * p.B_rows + b) * p.ld_l + i] = z_n;
     }
     // every read of the stored rows lies before block_reduce's barriers
     su2[i] = su1[i];
@@ -528,12 +548,12 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   }
 
   if (i < p.M_t) {
-    p.u1_out[(size_t)b * p.M_t + i] = su1[i];
-    p.u2_out[(size_t)b * p.M_t + i] = su2[i];
+    p.u1_out[(size_t)b * p.ld_t + i] = su1[i];
+    p.u2_out[(size_t)b * p.ld_t + i] = su2[i];
   }
   if (i < p.M_l) {
-    p.z1_out[(size_t)b * p.M_l + i] = sz1[i];
-    p.z2_out[(size_t)b * p.M_l + i] = sz2[i];
+    p.z1_out[(size_t)b * p.ld_l + i] = sz1[i];
+    p.z2_out[(size_t)b * p.ld_l + i] = sz2[i];
   }
 }
 
@@ -573,7 +593,9 @@ extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
                                    a->v_r == nullptr || a->F_H == nullptr ||
                                    a->u_H == nullptr));
   if (missing || W < 32 || W > 1024 || W % 32 != 0 || W < a->M_t || W < a->M_l ||
-      a->B < 1 || a->T < 1 || a->coupling_iters < 1 ||
+      a->B < 1 || a->T < 1 || a->coupling_iters < 1 || a->M_t_sem < 1 ||
+      a->ld_t < a->M_t || a->ld_l < a->M_l ||
+      (a->rows == nullptr ? a->B_rows != a->B : a->B_rows < 1) ||
       (a->state_u == nullptr) != (a->state_z == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -594,7 +616,7 @@ extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
   p.two_pi = static_cast<float>(2.0 * M_PI);
   p.ln10_6 = static_cast<float>(6.0 * log(10.0));
   p.inner_eps = static_cast<float>(100.0 * 1.1920928955078125e-07);  // 100 FLT_EPSILON
-  p.M_t_f = static_cast<float>(a->M_t);
+  p.M_t_sem_f = static_cast<float>(a->M_t_sem);
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

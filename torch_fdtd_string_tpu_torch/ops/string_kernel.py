@@ -13,6 +13,11 @@ output at the pickup or as the surface integral.
 * CPU tensors run :func:`string_chunked_reference`, the plain PyTorch
   version of the same algorithm, in float32 or float64.
 
+:func:`string_chunked_bucketed` (the JAX ``string_chunked_bucketed``) runs
+the strings of a batch in width groups (:func:`bucket_groups`), each at its
+own block width, one launch per group on its own stream; its plain version
+is :func:`string_chunked_bucketed_reference`.
+
 Ported specializations: pluck, bow, hammer and any mix of them per string
 (``bow`` / ``hammer`` dicts with per-string masks), the surface-integral
 and the interpolated pickup readout, poison-only exits
@@ -34,6 +39,7 @@ import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import stencils as st
@@ -79,11 +85,12 @@ class _LaunchArgs(ctypes.Structure):
     _fields_ = (
         [(n, ctypes.c_int) for n in (
             "struct_size", "B", "T", "M_t", "M_l", "W", "M_t_sem",
-            "coupling_iters", "has_bow", "has_hammer", "surface_integral")]
+            "coupling_iters", "has_bow", "has_hammer", "surface_integral",
+            "B_rows", "ld_t", "ld_l")]
         + [(n, ctypes.c_double) for n in (
             "k", "theta", "lambda_c", "relative_error")]
         + [(n, ctypes.c_void_p) for n in (
-            "f0", "kappa", "alpha", "pos", "t60", "u1", "u2", "z1", "z2",
+            "rows", "f0", "kappa", "alpha", "pos", "t60", "u1", "u2", "z1", "z2",
             "x_b", "v_b", "F_b", "wid", "phi_0", "phi_1", "bmask",
             "x_H", "w_H", "M_r", "alpha_H", "hmask", "uH1", "uH2",
             "uout", "zout", "u1_out", "u2_out", "z1_out", "z2_out",
@@ -212,6 +219,7 @@ string_chunked.launches_by_spec = {}
 
 def reset_launch_counts():
     string_chunked.launches_by_spec = {}
+    string_chunked_bucketed.launches = 0
 
 
 def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
@@ -226,7 +234,9 @@ def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
 
     Same arguments, results and specialization limits.  Batched tensor ops
     in the inputs' dtype (float32 or float64), one Python iteration per
-    step and per sweep.
+    step and per sweep.  ``aux["sweeps"]`` (T, B) int32 also counts each
+    string's Gauss-Seidel sweeps per step, the work the kernel does on the
+    same data.
     """
     c = _consts(
         k=k, theta_t=theta_t, lambda_c=lambda_c, M_t=M_t, M_l=M_l,
@@ -238,6 +248,176 @@ def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
     )
     return _reference(c, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
                       _excitation(f0, bow, hammer))
+
+
+# smallest width group: a smaller one merges into the next wider group
+# (pallas_step.py:1032 with the fused path's batch_block=8)
+G_MIN = 16
+
+
+def grid_bounds(f0_min, kappa, alpha, k, theta_t, lambda_c):
+    """Per-string upper bounds on the live grid sizes, ``(bt, bl)`` int64.
+
+    Twin of the JAX ``_grid_bounds``: float64, a 1e-6 inflation before the
+    floor, so the bound dominates the kernel's per-step f32 arithmetic (a
+    few-ULP sqrt skew); ``f0_min`` is each string's minimum over its whole
+    control signal, since the grids grow as f0 falls.
+    """
+    f0 = np.asarray(f0_min, np.float64)
+    kap = np.asarray(kappa, np.float64)
+    alp = np.asarray(alpha, np.float64)
+    gamma = 2.0 * f0
+    K = kap * gamma
+    two_t = 2.0 * theta_t - 1.0
+    h_1 = lambda_c * np.sqrt(
+        (gamma**2 * k**2 + np.sqrt(gamma**4 * k**4 + 16.0 * K**2 * k**2 * two_t))
+        / (2.0 * two_t)
+    )
+    n_t = np.floor((1.0 / h_1) * (1.0 + 1e-6))
+    h_2 = lambda_c * gamma * alp * k
+    n_l = np.floor((1.0 / h_2) * (1.0 + 1e-6))
+    return (n_t + 2.0).astype(np.int64), (n_l + 2.0).astype(np.int64)
+
+
+def bucket_groups(f0, kappa, alpha, *, k, theta_t, lambda_c, M_t, M_l):
+    """Width groups of a batch: a list of ``(W_g, rows)``, ``rows`` an int64
+    index array, every string in exactly one group.
+
+    Each string needs ``32 ceil(max(bt, bl) / 32)`` lanes (the warp is the
+    width quantum), at most the allocation's :func:`padded_width`.  Strings
+    are sorted by need and grouped contiguously; a group smaller than
+    ``G_MIN`` merges upward into the next wider one.  A batch smaller than
+    ``2 G_MIN`` runs as one group at its widest need.  ``f0`` is ``(B, T)``
+    or ``(B,)`` and ``kappa``/``alpha`` ``(B,)``, host arrays (f32 as the
+    sampler made them).
+    """
+    f0_min, kap, alp = (np.asarray(a, np.float32).reshape(len(a), -1).min(axis=1)
+                        for a in (f0, kappa, alpha))
+    bt, bl = grid_bounds(f0_min, kap, alp, k, theta_t, lambda_c)
+    need = np.minimum(32 * ((np.maximum(bt, bl) + 31) // 32),
+                      padded_width(M_t, M_l)).astype(np.int64)
+    B = len(need)
+    if B < 2 * G_MIN:
+        return [(int(need.max()), np.arange(B))]
+    order = np.argsort(need, kind="stable")
+    need_s = need[order]
+    groups, start = [], 0
+    for width in sorted(set(need_s.tolist())):
+        end = int(np.searchsorted(need_s, width, side="right"))
+        if end - start < G_MIN and end < B:
+            continue  # merges into the next wider group
+        groups.append((int(width), order[start:end]))
+        start = end
+    return groups
+
+
+def string_chunked_bucketed(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
+                            M_t, M_l, host_bounds=None, **kw):
+    """Width-bucketed :func:`string_chunked`: same arguments and results.
+
+    The strings of a batch live on grids of very different sizes (they
+    scale ~1/f0) while the allocation is sized for the lowest f0 the
+    sampler can draw.  This runs each group of :func:`bucket_groups` at its
+    own block width, lanes ``min(M_t, W_g)`` / ``min(M_l, W_g)``, with the
+    allocation's ``M_t`` as ``M_t_sem``; lanes of the carry and state past
+    a group's width are 0.  Results equal the unbucketed call's up to the
+    order of the block reductions.
+
+    ``host_bounds`` is ``(f0, kappa, alpha)`` as host arrays, the sampler's
+    copies; without it they are copied from the inputs.  CUDA tensors
+    launch one kernel per group, each on its own stream, joined to the
+    current stream before return; CPU tensors run
+    :func:`string_chunked_bucketed_reference`.
+    """
+    c, groups = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    args = (f0, kappa, alpha, pos, t60, u1, u2, z1, z2)
+    if f0.is_cuda:
+        out = _launch_cuda(c, *args, kw.get("bow"), kw.get("hammer"),
+                           groups=groups)
+        string_chunked_bucketed.launches += len(groups)
+        return out
+    if f0.device.type == "cpu":
+        return _bucketed_reference(c, groups, *args, kw.get("bow"), kw.get("hammer"))
+    raise ValueError(f"string_chunked_bucketed: unsupported device {f0.device}")
+
+
+# group launches of string_chunked_bucketed; the CPU path does not count
+string_chunked_bucketed.launches = 0
+
+
+def string_chunked_bucketed_reference(f0, kappa, alpha, pos, t60, u1, u2, z1,
+                                      z2, *, M_t, M_l, host_bounds=None, **kw):
+    """Plain PyTorch version of :func:`string_chunked_bucketed` on any
+    device: :func:`_reference` per group at the group's width, scattered
+    back into the batch."""
+    c, groups = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    return _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2,
+                               z1, z2, kw.get("bow"), kw.get("hammer"))
+
+
+def _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw):
+    """The validated constants and the width groups of a bucketed call."""
+    c = _consts(M_t=M_t, M_l=M_l, M_t_sem=None, **_kernel_kw(kw))
+    if host_bounds is None:
+        host_bounds = (f0.amin(dim=1).cpu().numpy(), kappa.cpu().numpy(),
+                       alpha.cpu().numpy())
+    return c, bucket_groups(*host_bounds, k=c.k, theta_t=c.theta_t,
+                            lambda_c=c.lambda_c, M_t=M_t, M_l=M_l)
+
+
+def _kernel_kw(kw):
+    """:func:`_consts` arguments from the keyword arguments of a call."""
+    if kw.get("M_t_sem") is not None:
+        raise ValueError("the bucketed launch sets M_t_sem itself")
+    defaults = dict(coupling_iters=24, surface_integral=False,
+                    collect_state=False, bow=None, hammer=None,
+                    relative_error=4.0, manufactured=False, coupling_fixed=0,
+                    gmres_rescue=True)
+    tiling = {"chunk", "interpret", "batch_block", "mms_centered", "p_a",
+              "gmres_m", "M_t_sem"}
+    unknown = set(kw) - set(defaults) - tiling - {"k", "theta_t", "lambda_c"}
+    if unknown:
+        raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
+    out = {key: kw.get(key, val) for key, val in defaults.items()}
+    for key in ("k", "theta_t", "lambda_c"):
+        out[key] = kw[key]
+    return out
+
+
+@torch.inference_mode()
+def _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
+                        bow, hammer):
+    B, T = f0.shape
+    dt, dev = f0.dtype, f0.device
+    exc = _excitation(f0, bow, hammer)
+    full = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
+    uout, zout = full(B, T), full(B, T)
+    carry = [full(B, c.M_t), full(B, c.M_t), full(B, c.M_l), full(B, c.M_l)]
+    aux = {"sweeps": torch.zeros((T, B), dtype=torch.int32, device=dev)}
+    if exc:
+        aux.update({key: full(B, T) for key in ("v_r", "F_H", "u_H")})
+    if c.collect_state:
+        aux["state_u"], aux["state_z"] = full(T, B, c.M_t), full(T, B, c.M_l)
+    for W_g, rows in groups:
+        idx = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+        M_t_g, M_l_g = min(c.M_t, W_g), min(c.M_l, W_g)
+        c_g = c._replace(M_t=M_t_g, M_l=M_l_g)  # M_t_sem stays the allocation's
+        uo, zo, aux_g = _reference(
+            c_g, f0[idx], kappa[idx], alpha[idx], pos[idx], t60[idx],
+            u1[idx, :M_t_g], u2[idx, :M_t_g], z1[idx, :M_l_g], z2[idx, :M_l_g],
+            {key: v[idx] for key, v in exc.items()})
+        uout[idx], zout[idx] = uo, zo
+        aux["sweeps"][:, idx] = aux_g["sweeps"]
+        for full_c, part in zip(carry, aux_g["carry"]):
+            full_c[idx, : part.shape[1]] = part
+        for key in ("v_r", "F_H", "u_H"):
+            if key in aux:
+                aux[key][idx] = aux_g[key]
+        if c.collect_state:
+            aux["state_u"][:, idx, :M_t_g] = aux_g["state_u"]
+            aux["state_z"][:, idx, :M_l_g] = aux_g["state_z"]
+    aux["carry"] = tuple(carry)
+    return uout, zout, aux
 
 
 def _sign(x):
@@ -273,6 +453,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
 
     uout = torch.empty((B, T), dtype=dt, device=dev)
     zout = torch.empty((B, T), dtype=dt, device=dev)
+    sweeps = torch.zeros((T, B), dtype=torch.int32, device=dev)
     if c.collect_state:
         state_u = torch.empty((T, B, c.M_t), dtype=dt, device=dev)
         state_z = torch.empty((T, B, c.M_l), dtype=dt, device=dev)
@@ -280,10 +461,10 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
         traces = {key: torch.empty((B, T), dtype=dt, device=dev)
                   for key in ("v_r", "F_H", "u_H")}
         uH1, uH2 = exc["uH1"], exc["uH2"]  # the uHs carry (pallas_step.py:176)
-    if c.has_bow:
+    if c.has_bow:  # spatial axis of the allocation (M_t_sem), not the bucket
         bmask, phi0, phi1 = exc["bmask"], exc["phi_0"], exc["phi_1"]
-        xax = (itf + 1.0) / c.M_t
-        in_mt = (it < c.M_t).to(dt)
+        xax = (itf + 1.0) / c.M_t_sem
+        in_mt = (it < c.M_t_sem).to(dt)
     if c.has_hammer:
         hmask = exc["hmask"]
         a_H = exc["alpha_H"]
@@ -415,8 +596,8 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
             x_b, v_b, F_b = (exc[key][:, t : t + 1] for key in ("x_b", "v_b", "F_b"))
             wid_b = exc["wid"][:, t : t + 1] * h_t
             nmin1 = N_t - 1.0
-            ctr = x_b * nmin1 / c.M_t
-            wd = wid_b * nmin1 / c.M_t
+            ctr = x_b * nmin1 / c.M_t_sem
+            wd = wid_b * nmin1 / c.M_t_sem
             ind = _sign(torch.clamp(
                 -(xax - ctr - wd / 2.0) * (xax - ctr + wd / 2.0), min=0.0))
             rc = 0.5 * ind * (1.0 + torch.cos(2.0 * math.pi * (xax - ctr) / wd))
@@ -491,6 +672,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
             prev = torch.where(active, delta, prev)
             hopeless = torch.where(active, hop, hopeless)
             scale_u = torch.where(active, scale_b, scale_u)
+            sweeps[t] += active[:, 0]
             active = active & (delta > inner_eps * scale_b) & ~hop
             if not bool(active.any()):
                 break
@@ -536,7 +718,8 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
         z2s, z1s = z1s, z_n
 
     aux = {"carry": (u1s[:, : c.M_t], u2s[:, : c.M_t],
-                     z1s[:, : c.M_l], z2s[:, : c.M_l])}
+                     z1s[:, : c.M_l], z2s[:, : c.M_l]),
+           "sweeps": sweeps}
     if has_exc:
         aux.update(traces)
     if c.collect_state:
@@ -571,8 +754,11 @@ def _hammer_fixed_point(uH1, uH2, eta0, eta_1, eta_2, f_pow, eps_u, hmask,
 
 
 def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
-                 bow, hammer):
-    """Check the inputs, allocate the outputs and launch ``string_step``."""
+                 bow, hammer, groups=None):
+    """Check the inputs, allocate the outputs and launch ``string_step``:
+    once over the batch, or once per width group ``(W_g, rows)`` of
+    ``groups``, each group on its own stream, joined to the current stream
+    before the outputs are returned."""
     from . import build
 
     B, T = f0.shape
@@ -604,43 +790,81 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
             raise ValueError(f"{name} must be contiguous")
     if T < 1 or B < 1:
         raise ValueError(f"empty run: B={B}, T={T}")
-    if W > 1024:
-        raise ValueError(f"grid width {W} exceeds one thread block (1024)")
+    if groups is None:
+        groups = [(W, None)]
+    for W_g, _ in groups:
+        if W_g > 1024:
+            raise ValueError(f"grid width {W_g} exceeds one thread block (1024)")
 
     launch = build.load_kernel_library("string_step").string_step_launch
     launch.argtypes = [ctypes.POINTER(_LaunchArgs), ctypes.c_void_p]
     launch.restype = ctypes.c_int
     opts = dict(dtype=torch.float32, device=f0.device)
+    # lanes past a narrower group's width are never written and read 0
+    alloc = torch.zeros if any(W_g < W for W_g, _ in groups) else torch.empty
     out = {"uout": torch.empty((B, T), **opts), "zout": torch.empty((B, T), **opts)}
     for name, M in (("u1_out", c.M_t), ("u2_out", c.M_t), ("z1_out", c.M_l),
                     ("z2_out", c.M_l)):
-        out[name] = torch.empty((B, M), **opts)
+        out[name] = alloc((B, M), **opts)
     if c.has_bow or c.has_hammer:
         for name in ("v_r", "F_H", "u_H"):
             out[name] = torch.empty((B, T), **opts)
     if c.collect_state:
-        out["state_u"] = torch.empty((T, B, c.M_t), **opts)
-        out["state_z"] = torch.empty((T, B, c.M_l), **opts)
+        out["state_u"] = alloc((T, B, c.M_t), **opts)
+        out["state_z"] = alloc((T, B, c.M_l), **opts)
     exc = _excitation(f0, bow, hammer)  # views, masks as 0/1 floats
     ptrs = dict(f0=f0, kappa=kappa, alpha=alpha, pos=pos,
                 t60=t60.reshape(B, 4),  # (freq1, time1, freq2, time2)
                 u1=u1, u2=u2, z1=z1, z2=z2, **exc, **out)
-    args = _LaunchArgs(
-        struct_size=ctypes.sizeof(_LaunchArgs), B=B, T=T, M_t=c.M_t, M_l=c.M_l,
-        W=W, M_t_sem=c.M_t_sem, coupling_iters=c.coupling_iters,
-        has_bow=c.has_bow, has_hammer=c.has_hammer, surface_integral=c.surface_integral,
-        k=c.k, theta=c.theta_t, lambda_c=c.lambda_c,
-        relative_error=c.relative_error,
+    common = dict(
+        struct_size=ctypes.sizeof(_LaunchArgs), T=T, M_t_sem=c.M_t_sem,
+        coupling_iters=c.coupling_iters, has_bow=c.has_bow,
+        has_hammer=c.has_hammer, surface_integral=c.surface_integral,
+        B_rows=B, ld_t=c.M_t, ld_l=c.M_l, k=c.k, theta=c.theta_t,
+        lambda_c=c.lambda_c, relative_error=c.relative_error,
         **{name: x.data_ptr() for name, x in ptrs.items()},
     )
-    with torch.cuda.device(f0.device):
-        stream = torch.cuda.current_stream(f0.device).cuda_stream
-        rc = launch(ctypes.byref(args), stream)
-    if rc != 0:
-        raise RuntimeError(f"string_step launch failed: CUDA error {rc}")
     by_spec = string_chunked.launches_by_spec
-    by_spec[c.name] = by_spec.get(c.name, 0) + 1
+    with torch.cuda.device(f0.device):
+        main = torch.cuda.current_stream(f0.device)
+        if groups[0][1] is None:
+            streams = [main]
+        else:
+            streams = _side_streams(f0.device, len(groups))
+        row_idx = []  # alive until the streams have joined
+        for (W_g, rows), stream in zip(groups, streams):
+            if rows is None:
+                args = _LaunchArgs(B=B, M_t=c.M_t, M_l=c.M_l, W=W_g, rows=None,
+                                   **common)
+            else:
+                rows = np.asarray(rows, np.int32)
+                if rows.min() < 0 or rows.max() >= B:
+                    raise IndexError(f"group rows outside the batch of {B}")
+                idx = torch.as_tensor(rows).to(f0.device)
+                row_idx.append(idx)
+                stream.wait_stream(main)
+                args = _LaunchArgs(B=len(rows), M_t=min(c.M_t, W_g),
+                                   M_l=min(c.M_l, W_g), W=W_g,
+                                   rows=idx.data_ptr(), **common)
+            rc = launch(ctypes.byref(args), stream.cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"string_step launch failed: CUDA error {rc}")
+            by_spec[c.name] = by_spec.get(c.name, 0) + 1
+        for stream in streams:
+            if stream is not main:
+                main.wait_stream(stream)
     aux = {"carry": tuple(out[n] for n in ("u1_out", "u2_out", "z1_out", "z2_out"))}
     aux.update({n: out[n] for n in ("v_r", "F_H", "u_H", "state_u", "state_z")
                 if n in out})
     return out["uout"], out["zout"], aux
+
+
+_STREAMS = {}  # device index -> side streams of the bucketed launch
+
+
+def _side_streams(device, n):
+    """``n`` CUDA streams of ``device``, created once and reused."""
+    pool = _STREAMS.setdefault(device.index, [])
+    while len(pool) < n:
+        pool.append(torch.cuda.Stream(device))
+    return pool[:n]

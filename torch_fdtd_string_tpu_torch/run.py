@@ -1,7 +1,7 @@
 """CLI entry point of the PyTorch port.
 
     python -m torch_fdtd_string_tpu_torch.run experiment=nsynth-like \\
-        task.fuse_preprocess=false task.num_samples=24
+        task.num_samples=24
 
 Takes the same overrides as the JAX package's ``run.py`` and composes the
 same config tree (``torch_fdtd_string_tpu/configs``, read as YAML by file

@@ -1,24 +1,35 @@
-"""Dataset-generation task: parameter draws, the fused string kernel,
-NaN/silence skip and the archival artifacts.
+"""Dataset-generation task: parameter draws, the width-bucketed string
+kernel, NaN/silence skip, and the archival or the fused training artifacts.
 
 PyTorch port of ``torch_fdtd_string_tpu/tasks/simulate.py`` (reference
 ``src/task/simulate.py``).  Per batch: numpy parameter draws
 (``core/params.py``), the first two state rows (``ops/fdm.py``), one call of
-the fused string kernel over all steps (``ops/string_kernel.py``), then the
-reference's artifact contract on disk per written item:
-``output{,-u,-z}.wav``, ``simulation.npz`` (with the full ``state_u`` /
-``state_z`` fields and the ``v_r``/``F_H``/``u_H`` probe traces),
-``{string,bow,hammer}_params.npz`` and ``simulation_config.yaml``; per run
-``skip_stats.json`` and the timing log ``gpu_time.txt`` (CUDA) or
-``cpu_time.txt`` (CPU).  Plucked, bowed and hammered strings, and batches
-that mix them per string (``model.excitation=null``), all run through it.
+the width-bucketed string kernel over all steps
+(``ops/string_kernel.py::string_chunked_bucketed``), then per written item:
+
+* the classic archival contract (``task.fuse_preprocess=false``):
+  ``output{,-u,-z}.wav``, ``simulation.npz`` (with the full ``state_u`` /
+  ``state_z`` fields and the ``v_r``/``F_H``/``u_H`` probe traces),
+  ``{string,bow,hammer}_params.npz`` and ``simulation_config.yaml``;
+* fused preprocessing (``task.fuse_preprocess=true``, the nsynth-like
+  default): the state field stays on the device, where
+  ``ops/postproc.py::postprocess_batch`` reduces it to the kept training
+  columns; each item's DMSP layout (per-x wavs, ``vt.wav``,
+  ``parameters.npz``) goes to ``<save_dir>-prep/`` with a
+  ``_gen_meta.jsonl`` provenance line per run, and the run-dir artifacts
+  are state-free.  A batch whose width spread reaches ``POSTPROC_G`` (and
+  every float64 run) is post-processed on the host from each item's
+  native-width state.
+
+Per run: ``skip_stats.json`` and the timing log ``gpu_time.txt`` (CUDA) or
+``cpu_time.txt`` (CPU); a fused run's ``skip_stats.json`` also carries the
+writer phases' times and the device-to-host bytes.
 
 The device is chosen explicitly: the CPU, where the kernel's plain PyTorch
 version runs, for ``proc.cpu=true`` or ``task.precision=double``; CUDA
 otherwise, and a host without a usable card raises.  Not ported yet, and
-refused with ``NotImplementedError``: MMS forcing, preset loading, fused
-preprocessing, the NaN rescue ladder, plots and writing during the process
-(see ROADMAP.md).
+refused with ``NotImplementedError``: MMS forcing, preset loading, the NaN
+rescue ladder, plots and writing during the process (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -34,7 +46,7 @@ import torch
 from ..core import params as prm
 from ..core.engine import SimConsts, StringParams
 from ..ops import fdm
-from ..ops.string_kernel import string_chunked
+from ..ops.string_kernel import string_chunked_bucketed
 from ..utils import audio
 from ..utils import misc as ms
 from ..utils import wav as wavio
@@ -107,25 +119,184 @@ def kernel_inputs(state, consts: SimConsts, Nt, device, bow=None, hammer=None,
     return args, kwargs
 
 
-def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
-            device):
-    """Run one batch through the fused string kernel (steps 2..Nt-1).
+class RunStats:
+    """One run's device-to-host byte count and writer-phase timings,
+    shared by the simulation loop and the writer threads.
 
-    Returns numpy ``(uout, zout, state_u, state_z, v_r, F_H, u_H, sig0,
-    sig1)``; the state fields are ``(B, Nt, M)`` with the two initial rows
-    first, or ``None`` without ``consts.collect_state``.
+    ``link_bytes`` counts every array pulled from the simulation device to
+    the host (on the CPU the pulls are free, and counted all the same),
+    ``state_bytes`` the state fields a fused run leaves on the device;
+    ``phases`` holds the writer phases' wall seconds and call counts:
+    ``pull`` (waiting for a batch's post-processed arrays), ``assemble``
+    (an item from the device post-processing), ``host_build`` (an item
+    through ``build_processed`` from its native-width state) and ``write``
+    (the item's wavs and ``parameters.npz``).
     """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.link_bytes = 0
+        self.state_bytes = 0  # of the state fields left on the device
+        self.phases = {}
+        self.width_spread = []  # per batch of a fused run
+
+    def count(self, nbytes):
+        with self._lock:
+            self.link_bytes += int(nbytes)
+
+    def time(self, phase, dt):
+        with self._lock:
+            tot, n = self.phases.get(phase, (0.0, 0))
+            self.phases[phase] = (tot + dt, n + 1)
+
+    def save_timing(self):
+        """Per phase ``{total_s, n, ms_each}``, as the JAX package's
+        ``save_timing`` reports them."""
+        with self._lock:
+            return {key: {"total_s": round(t, 3), "n": n,
+                          "ms_each": round(t / n * 1e3, 1)}
+                    for key, (t, n) in self.phases.items()}
+
+
+class _HostCopy:
+    """Device tensors copied to the host without stalling the device
+    stream: on CUDA the copies go on a side stream into pinned buffers,
+    started at construction, so they overlap the next batch's kernel;
+    ``get()`` waits for them once and returns numpy arrays, counting their
+    bytes in ``stats``.  CPU tensors are handed over as they are."""
+
+    _streams = {}  # device index -> copy stream
+    _streams_lock = threading.Lock()
+
+    def __init__(self, tensors, stats):
+        self._stats = stats
+        self._lock = threading.Lock()
+        self._val = None
+        self._event = None
+        self._host = {}
+        for key, x in tensors.items():
+            if not x.is_cuda:
+                self._host[key] = x
+                continue
+            if self._event is None:
+                with _HostCopy._streams_lock:
+                    stream = _HostCopy._streams.get(x.device.index)
+                    if stream is None:
+                        stream = _HostCopy._streams[x.device.index] = (
+                            torch.cuda.Stream(x.device))
+                stream.wait_stream(torch.cuda.current_stream(x.device))
+                self._event = torch.cuda.Event()
+            with torch.cuda.stream(stream):
+                buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                buf.copy_(x, non_blocking=True)
+                x.record_stream(stream)  # x stays allocated until copied
+            self._host[key] = buf
+        if self._event is not None:
+            self._event.record(stream)
+
+    def get(self):
+        with self._lock:
+            if self._val is None:
+                if self._event is not None:
+                    self._event.synchronize()
+                self._val = {key: x.numpy() for key, x in self._host.items()}
+                self._stats.count(sum(x.nbytes for x in self._val.values()))
+                self._host = None
+            return self._val
+
+
+class _DeviceState:
+    """The transverse state of a fused batch, left on the simulation
+    device: ``post`` holds the batch's post-processed arrays
+    (:class:`_HostCopy` of :func:`..ops.postproc.postprocess_batch`), or is
+    None when the batch takes the host path, where
+    :meth:`fetch_element` pulls one string's native-width slice."""
+
+    def __init__(self, su, u1_init, u2_init, post, stats):
+        self.post = post
+        self._su = su if post is None else None  # free the field once consumed
+        self._head = (u2_init, u1_init)
+        self._stats = stats
+
+    def fetch_element(self, b, w):
+        """String ``b``'s rows at its live width ``w``, ``(Nt, w)`` float32
+        (the two initial rows first)."""
+        body = self._su[:, b, :w].to(device="cpu", dtype=torch.float32).numpy()
+        self._stats.count(body.nbytes)
+        head = np.stack([self._head[0][b, :w], self._head[1][b, :w]])
+        return np.concatenate([head.astype(np.float32), body], axis=0)
+
+
+class _Readout:
+    """Row access to one ``(B, T)`` readout of a batch's :class:`_HostCopy`."""
+
+    def __init__(self, copy, key):
+        self._copy = copy
+        self._key = key
+
+    def __getitem__(self, i):
+        return self._copy.get()[self._key][i]
+
+
+_OSTACK = {}  # (device, M, keep, grid) -> spline operator stack on device
+_OSTACK_LOCK = threading.Lock()
+
+
+def _ostack_device(M, keep, n_grid, device):
+    """The spline operator stack on ``device``, uploaded once per process."""
+    from ..ops import postproc as pp
+
+    key = (str(device), int(M), tuple(int(i) for i in keep), int(n_grid))
+    with _OSTACK_LOCK:
+        dev = _OSTACK.get(key)
+    if dev is None:
+        dev = torch.as_tensor(pp.spline_operator_stack(M, np.asarray(keep), n_grid=n_grid),
+                              device=device)
+        with _OSTACK_LOCK:
+            dev = _OSTACK.setdefault(key, dev)
+    return dev
+
+
+# widths per string that the device post-processing sweeps: the f0 sampler
+# bounds the drift to ~8%, a spread of ~20 widths; a batch that spreads
+# wider is post-processed on the host
+POSTPROC_G = 32
+
+
+def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
+            device, sr=48000, postproc_keep=None, stats=None):
+    """Run one batch through the width-bucketed string kernel (steps
+    2..Nt-1).
+
+    Returns ``(uout, zout, state_u, state_z, v_r, F_H, u_H, sig0, sig1)``.
+    Without ``postproc_keep`` every array is numpy and the state fields are
+    ``(B, Nt, M)`` with the two initial rows first, or ``None`` without
+    ``consts.collect_state``.  With ``postproc_keep = (keep, n_grid)``
+    (fused preprocessing) the state stays on ``device``: ``uout``/``zout``
+    are the device tensors, ``state_u`` is a :class:`_DeviceState` whose
+    ``post`` carries the batch's :func:`..ops.postproc.postprocess_batch`
+    outputs when its width spread is below ``G`` (float32 runs), and
+    ``state_z`` is None.  Pulls are counted in ``stats``.
+    """
+    stats = stats or RunStats()
     args, kwargs = kernel_inputs(state, consts, Nt, device, bow, hammer,
                                  bow_mask, hammer_mask)
-    uout_d, zout_d, aux = string_chunked(*args, **kwargs)
+    # host copies of the draws for the bucketing bounds
+    host_bounds = (state.f0[:, 2:Nt], state.kappa, state.alpha)
+    uout_d, zout_d, aux = string_chunked_bucketed(*args, host_bounds=host_bounds,
+                                                  **kwargs)
     np_dt = state.u0.dtype
     B, T = uout_d.shape
-    uout = uout_d.cpu().numpy()
-    zout = zout_d.cpu().numpy()
+
+    def pull(x):
+        out = x.cpu().numpy()
+        stats.count(out.nbytes)
+        return out
+
     if consts.has_bow or consts.has_hammer:
-        v_r = aux["v_r"].cpu().numpy()
-        F_H = aux["F_H"].cpu().numpy()
-        u_H = aux["u_H"].cpu().numpy() / consts.k
+        v_r = pull(aux["v_r"])
+        F_H = pull(aux["F_H"])
+        u_H = pull(aux["u_H"]) / consts.k
     else:
         # excitation-free run: zero probe traces and the free ballistic
         # hammer ramp in closed form (engine fast-path semantics)
@@ -135,15 +306,45 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
         v_r = np.zeros((B, T), np_dt)
         F_H = np.zeros((B, T), np_dt)
     gamma = 2.0 * state.f0[:, -1]
-    sig0, sig1 = audio.T60_to_sigma(state.T60, gamma, state.kappa * gamma)
+    # the last step's loss terms, in the run's dtype as the engine gives them
+    sig0, sig1 = (np.asarray(x, np_dt) for x in
+                  audio.T60_to_sigma(state.T60, gamma, state.kappa * gamma))
+    u1, u2 = args[5], args[6]
+    if postproc_keep is not None:
+        stats.state_bytes += sum(aux[key].numel() * aux[key].element_size()
+                                 for key in ("state_u", "state_z"))
+        post = None
+        if u1.dtype == torch.float32:
+            from ..ops import postproc as pp
+
+            G = POSTPROC_G
+            spread = pp.host_widths_spread(
+                np.asarray(state.f0, np.float32), np.asarray(state.kappa),
+                consts.k, consts.theta_t, consts.lambda_c)
+            stats.width_spread.append(spread)
+            if spread < G:
+                keep_idx, keep_grid = postproc_keep
+                out_dev = pp.postprocess_batch(
+                    aux["state_u"], u1, u2, args[0].new_tensor(state.f0[:, :2]),
+                    args[0], args[1],
+                    _ostack_device(consts.M_t, keep_idx, keep_grid, device),
+                    k=consts.k, theta_t=consts.theta_t,
+                    lambda_c=consts.lambda_c, sr=sr, G=G)
+                post = _HostCopy(out_dev, stats)
+            else:
+                print(f"[simulate] width spread {spread} >= {G}; this batch "
+                      "takes the host path", flush=True)
+        u1_h, u2_h = fdm.initialize_state_rows(state.u0, state.v0, consts.k)
+        handle = _DeviceState(aux["state_u"], u1_h, u2_h, post, stats)
+        return uout_d, zout_d, handle, None, v_r, F_H, u_H, sig0, sig1
+    uout, zout = pull(uout_d), pull(zout_d)
     if not consts.collect_state:
         return uout, zout, None, None, v_r, F_H, u_H, sig0, sig1
-    u1, u2 = args[5], args[6]
     z0 = torch.zeros((B, 2, consts.M_l), dtype=u1.dtype, device=u1.device)
     state_u = torch.cat(
         [u2[:, None], u1[:, None], aux["state_u"].transpose(0, 1)], dim=1)
     state_z = torch.cat([z0, aux["state_z"].transpose(0, 1)], dim=1)
-    return (uout, zout, state_u.cpu().numpy(), state_z.cpu().numpy(),
+    return (uout, zout, pull(state_u), pull(state_z),
             v_r, F_H, u_H, sig0, sig1)
 
 
@@ -195,11 +396,13 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
              lambda_c, cpu=False, load_config=None, string_kwargs=None,
              hammer_kwargs=None, bow_kwargs=None, precision="single",
              relative_order=4, surface_integral=False, randomize_each="batch",
-             manufactured=False, rng=None, collect_state=True):
+             manufactured=False, rng=None, collect_state=True,
+             postproc_keep=None, stats=None):
     """Draw one batch and simulate it (reference simulate.py:121-217).
 
     Returns ``(results, (string, bow, hammer, [k, theta_t, lambda_c],
-    consts), (bow_mask, hammer_mask, pluck_mask), device)``.
+    consts), (bow_mask, hammer_mask, pluck_mask), device)``; ``results`` as
+    :func:`process` returns them.
     """
     if load_config is not None:
         _not_ported("preset loading (task.load_config)", "Queue 1 item 5")
@@ -216,7 +419,8 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
     )
     device = select_device(cpu, precision)
     results = process(string, bow, hammer, bow_mask, hammer_mask, consts,
-                      int(length * sr), device)
+                      int(length * sr), device, sr=sr,
+                      postproc_keep=postproc_keep, stats=stats)
     k = 1.0 / sr
     return (results, (string, bow, hammer, [k, theta_t, lambda_c], consts),
             (bow_mask, hammer_mask, pluck_mask), device)
@@ -273,14 +477,80 @@ def task_kwargs(task):
     )
 
 
+def _assemble_post_item(pz, b, _sim, _str, _bow, _ham, string, Nx_t,
+                        fuse_keep, fuse_Nx, sr, save_modal):
+    """One processed training item from the device-postprocessed arrays of
+    its batch, with the key schema of :func:`..tasks.process_training_data.
+    build_processed` (JAX ``tasks/simulate.py::_assemble_post_item``).
+
+    ``gain`` comes from the live maximum at native width, where
+    ``build_processed`` takes it over the upsampled grid (the spline's
+    overshoot, ~1%); the gain scales estimate and target alike.
+    """
+    from ..ops import postproc as pp
+    from ..utils import data as udata
+
+    ut = np.asarray(pz["ut_keep"][b], np.float32)  # (Nt, K)
+    Nt = ut.shape[0]
+    vt = np.asarray(pz["vt"][b], np.float32)  # summed-velocity wav (k=1)
+    gain = 1.0 / (float(pz["umax"][b]) + float(np.finfo(np.float32).eps))
+    ti = np.arange(Nt, dtype=np.float64)[:, None] / sr
+    xi = np.linspace(0, 1, fuse_Nx)
+
+    w0 = int(np.asarray(Nx_t[b]).reshape(-1)[0]) + 1
+    u0n = np.asarray(string.u0[b][:w0], np.float32)
+    u0_grid = u0n @ udata.spline_matrix(w0, fuse_Nx).T
+
+    ua_keep, _, mode_freq, ma_keep, ua_f0 = pp.modal_target_host(
+        u0_grid, string.f0[b], string.kappa[b], string.T60[b], Nt, sr,
+        fuse_keep, strict=False, synth=save_modal,
+    )
+    _sim = dict(_sim)
+    _sim.update(
+        ut_f0=np.asarray(pz["ut_f0"][b], np.float64),
+        mode_freq=mode_freq,
+        mode_amps=ma_keep,
+        x=xi[np.asarray(fuse_keep)][None, :],
+        t=ti,
+        ut=ut,
+        vt=vt,
+        gain=float(gain),
+    )
+    if save_modal:
+        _sim.update(ua=ua_keep, ua_f0=ua_f0)
+    _str = dict(_str)
+    _str.pop("v0", None)
+    # u0 is the model's initial-profile input on the FULL training grid
+    # (reference process_training_data.py:193), never the kept subset
+    _str.update(u0=u0_grid[None, :])
+    _bow = dict(_bow)
+    _bow["ph0_B"] = _bow.pop("phi_0")
+    _bow["ph1_B"] = _bow.pop("phi_1")
+    _ham = dict(_ham)
+    _ham["M_H"] = _ham.pop("M_r")
+    _ham["a_H"] = _ham.pop("alpha")
+    return {**_sim, **_str, **_bow, **_ham}
+
+
+# the (Nt,) series that no training or evaluation loader reads, dropped from
+# a prepared item by task.save_compact_params (the JAX data/dataset.py KEYS)
+COMPACT_DROP = ("Nx_t", "Nx_l", "target_f0", "x_B", "v_B", "F_B", "wid_B",
+                "v_H", "u_H")
+
+
 def run(args, save_dir, model_name, n_samples):
-    """Dataset-generation loop (reference simulate.py:219-456), classic
-    archival contract.  Returns the per-batch simulate wall times."""
+    """Dataset-generation loop (reference simulate.py:219-456).
+
+    Classic archival contract, or with ``task.fuse_preprocess`` (the
+    nsynth-like default) the DMSP training layout written straight from the
+    run into ``<save_dir>-prep/`` (``task.fuse_save_dir``): per-x wavs and
+    ``parameters.npz`` per item, from the on-device post-processing of the
+    state field, which never leaves the device; a state-free
+    ``simulation.npz`` per item with ``task.save``.  Returns the per-batch
+    simulate wall times.
+    """
     task = args.task
     sr = task.sr
-    if task.get("fuse_preprocess", False):
-        _not_ported("fused preprocessing (task.fuse_preprocess=true)",
-                    "Queue 1 item 1")
     if task.get("rescue_nan", True) and task.precision != "double":
         _not_ported("the NaN rescue ladder (task.rescue_nan=true)",
                     "Queue 1 item 4")
@@ -295,46 +565,122 @@ def run(args, save_dir, model_name, n_samples):
     rng = np.random.default_rng(args.proc.seed)
     time_log = []
     skip_stats = []
+    stats = RunStats()
     os.makedirs(save_dir, exist_ok=True)
-    collect_state = bool(task.save)
     bitrate = "PCM_24" if task.precision == "double" else "PCM_16"
+
+    fuse = bool(task.get("fuse_preprocess", False))
+    fuse_stride = int(task.get("save_x_stride", 1) or 1)
+    fuse_Nx = int(task.get("process_Nx", 256) or 256)
+    fuse_dir = task.get("fuse_save_dir") or f"{save_dir}-prep"
+    save_modal = bool(task.get("save_modal", True))  # the ua baseline
+    save_wav = bool(task.get("save_output_wav", True))  # run-dir wavs, readouts
+    compact_params = bool(task.get("save_compact_params", False))
+    fuse_keep = np.arange(0, fuse_Nx, fuse_stride) if fuse else None
+    # a fresh stride offset per batch, from a generator of its own so the
+    # parameter stream (and _gen_meta.jsonl's provenance) stays as it is
+    fuse_jitter = bool(task.get("save_x_offset_jitter", False))
+    x_off_rng = (np.random.default_rng([int(args.proc.seed), 0x0FF5E7])
+                 if fuse and fuse_jitter and fuse_stride > 1 else None)
+    if fuse:
+        from ..utils import data as udata
+        from . import process_training_data as ptd
+
+        os.makedirs(fuse_dir, exist_ok=True)
+        # one provenance line per generation job: the same seed at another
+        # batch size draws other strings
+        with open(os.path.join(fuse_dir, "_gen_meta.jsonl"), "a") as f:
+            f.write(json.dumps({
+                "seed": int(args.proc.seed), "batch_size": int(task.batch_size),
+                "num_samples": int(n_samples * task.batch_size),
+                "save_x_stride": fuse_stride, "save_modal": save_modal,
+                "save_x_offset_jitter": fuse_jitter,
+                "time": time.strftime("%Y-%m-%dT%H:%M:%S"),
+            }) + "\n")
+    collect_state = bool(task.save or fuse)
 
     def save_item(b, d, excitation, uout, zout, state_u, state_z, v_r, F_H,
                   u_H, string, bow, hammer, Nx_t, Nx_l, sig0, sig1,
-                  bow_mask, hammer_mask, pluck_mask, consts_list):
-        os.makedirs(d, exist_ok=True)
-        if task.normalize_output:
-            u_n, gain = audio.ell_infty_normalize(uout[b])
-            z_n = gain * zout[b]
-        else:
-            u_n, z_n = uout[b], zout[b]
-        wavio.write(f"{d}/output-u.wav", u_n, sr, bitrate)
-        wavio.write(f"{d}/output-z.wav", z_n, sr, bitrate)
-        wavio.write(f"{d}/output.wav", u_n + z_n, sr, bitrate)
-        if not task.save:
+                  bow_mask, hammer_mask, pluck_mask, consts_list, keep):
+        if save_wav or task.save:
+            os.makedirs(d, exist_ok=True)
+        if save_wav:
+            if task.normalize_output:
+                u_n, gain = audio.ell_infty_normalize(uout[b])
+                z_n = gain * zout[b]
+            else:
+                u_n, z_n = uout[b], zout[b]
+            wavio.write(f"{d}/output-u.wav", u_n, sr, bitrate)
+            wavio.write(f"{d}/output-z.wav", z_n, sr, bitrate)
+            wavio.write(f"{d}/output.wav", u_n + z_n, sr, bitrate)
+        if task.save:
+            overall = dict(
+                uout=uout[b], zout=zout[b], v_r_out=v_r[b], F_H_out=F_H[b],
+                u_H_out=u_H[b], bow_mask=bow_mask[b], hammer_mask=hammer_mask[b],
+                pluck_mask=pluck_mask[b], Nx_t=Nx_t[b], Nx_l=Nx_l[b],
+                sig0=sig0[b], sig1=sig1[b],
+                string_params=[
+                    string.kappa[b], string.alpha[b], string.u0[b][None, :],
+                    string.v0[b][None, :], string.p_a[b], string.f0[b],
+                    string.pos[b], string.T60[b], string.target_f0[b],
+                ],
+                hammer_params=[
+                    hammer.x_H[b], hammer.v_H[b], hammer.u_H[b], hammer.w_H[b],
+                    hammer.M_r[b], hammer.alpha[b],
+                ],
+                bow_params=[
+                    bow.x_b[b], bow.v_b[b], bow.F_b[b], bow.phi_0[b],
+                    bow.phi_1[b], bow.wid[b],
+                ],
+            )
+            if not fuse:  # the fused bundle is state-free
+                overall["state_u"] = state_u[b, :, : int(Nx_t[b].max()) + 1]
+                overall["state_z"] = state_z[b, :, : int(Nx_l[b].max()) + 1]
+            ms.save_simulation_data(d, excitation, overall, consts_list)
+        if not fuse:
             return
-        overall = dict(
-            uout=uout[b], zout=zout[b], v_r_out=v_r[b], F_H_out=F_H[b],
-            u_H_out=u_H[b], bow_mask=bow_mask[b], hammer_mask=hammer_mask[b],
-            pluck_mask=pluck_mask[b], Nx_t=Nx_t[b], Nx_l=Nx_l[b],
-            sig0=sig0[b], sig1=sig1[b],
-            string_params=[
-                string.kappa[b], string.alpha[b], string.u0[b][None, :],
-                string.v0[b][None, :], string.p_a[b], string.f0[b],
-                string.pos[b], string.T60[b], string.target_f0[b],
-            ],
-            hammer_params=[
-                hammer.x_H[b], hammer.v_H[b], hammer.u_H[b], hammer.w_H[b],
-                hammer.M_r[b], hammer.alpha[b],
-            ],
-            bow_params=[
-                bow.x_b[b], bow.v_b[b], bow.F_b[b], bow.phi_0[b],
-                bow.phi_1[b], bow.wid[b],
-            ],
-            state_u=state_u[b, :, : int(Nx_t[b].max()) + 1],
-            state_z=state_z[b, :, : int(Nx_l[b].max()) + 1],
-        )
-        ms.save_simulation_data(d, excitation, overall, consts_list)
+        _sim = dict(bow_mask=bow_mask[b], hammer_mask=hammer_mask[b],
+                    pluck_mask=pluck_mask[b], Nx_t=Nx_t[b], Nx_l=Nx_l[b],
+                    sig0=sig0[b], sig1=sig1[b])
+        if save_wav:
+            _sim.update(uout=uout[b], zout=zout[b], v_r_out=v_r[b],
+                        F_H_out=F_H[b], u_H_out=u_H[b])
+        _str = dict(kappa=string.kappa[b], alpha=string.alpha[b],
+                    u0=string.u0[b][None, :], v0=string.v0[b][None, :],
+                    p_a=string.p_a[b], f0=string.f0[b], pos=string.pos[b],
+                    T60=string.T60[b], target_f0=string.target_f0[b])
+        _bow = dict(x_B=bow.x_b[b], v_B=bow.v_b[b], F_B=bow.F_b[b],
+                    phi_0=bow.phi_0[b], phi_1=bow.phi_1[b], wid_B=bow.wid[b])
+        _ham = dict(x_H=hammer.x_H[b], v_H=hammer.v_H[b], u_H=hammer.u_H[b],
+                    w_H=hammer.w_H[b], M_r=hammer.M_r[b], alpha=hammer.alpha[b])
+        if state_u.post is not None:
+            # the device path: the item's kept columns and tracks, pulled
+            # once per batch, plus the modal data from the host
+            t0 = time.perf_counter()
+            pz = state_u.post.get()
+            stats.time("pull", time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            item = _assemble_post_item(pz, b, _sim, _str, _bow, _ham, string,
+                                       Nx_t, keep, fuse_Nx, sr, save_modal)
+            stats.time("assemble", time.perf_counter() - t0)
+        else:
+            # the host path: the item's state at its native width
+            t0 = time.perf_counter()
+            _sim["state_u"] = state_u.fetch_element(b, int(Nx_t[b].max()) + 1)
+            item = ptd.build_processed(
+                _sim, _str, _bow, _ham, theta_t, task.lambda_c, sr, fuse_Nx,
+                strict=False, device_synth=False,
+                x_keep=keep if fuse_stride > 1 else None)
+            if not save_modal:
+                for key in ("ua", "ua_f0"):
+                    item.pop(key, None)
+            stats.time("host_build", time.perf_counter() - t0)
+        if compact_params:
+            for key in COMPACT_DROP:
+                item.pop(key, None)
+        t0 = time.perf_counter()
+        udata.save(os.path.join(fuse_dir, os.path.basename(d)), item, sr=sr)
+        stats.time("write", time.perf_counter() - t0)
 
     with concurrent.futures.ThreadPoolExecutor(
         max_workers=max(int(args.proc.num_workers), 1)
@@ -345,6 +691,10 @@ def run(args, save_dir, model_name, n_samples):
             while len(pending) > task.batch_size:
                 pending.pop(0).result()
             dx = str(it) if not task.randomize_name else ms.random_str(rng=rng)
+            keep_it = fuse_keep
+            if x_off_rng is not None:
+                keep_it = np.arange(int(x_off_rng.integers(fuse_stride)),
+                                    fuse_Nx, fuse_stride)
 
             st = time.time()
             results, params_out, masks, device = simulate(
@@ -355,7 +705,9 @@ def run(args, save_dir, model_name, n_samples):
                 surface_integral=task.surface_integral,
                 randomize_each=task.randomize_each,
                 manufactured=task.manufactured, rng=rng,
-                collect_state=collect_state, **kw,
+                collect_state=collect_state,
+                postproc_keep=(keep_it, fuse_Nx) if fuse else None,
+                stats=stats, **kw,
             )
             proc_time = time.time() - st
             time_log.append(proc_time)
@@ -367,7 +719,23 @@ def run(args, save_dir, model_name, n_samples):
             string, bow, hammer, consts_list, _ = params_out
             bow_mask, hammer_mask, pluck_mask = masks
 
-            state_is_nan = np.isnan(uout.sum(-1))
+            if torch.is_tensor(uout):
+                # fused: the (B,) NaN and silence flags cross; the readouts
+                # only when an artifact holds them
+                nan_d = torch.isnan(uout.sum(-1))
+                uout = uout * ~nan_d[:, None]
+                rms = torch.sqrt(torch.mean(uout.double() ** 2, dim=-1))
+                db = 20 * torch.log10(rms + float(np.finfo(np.float64).eps))
+                readouts = (_HostCopy({"uout": uout, "zout": zout}, stats)
+                            if save_wav or task.save else None)
+                state_is_nan = nan_d.cpu().numpy()
+                is_silent = (db <= task.silence_threshold).cpu().numpy()
+                stats.count(state_is_nan.nbytes + is_silent.nbytes)
+                uout, zout = _Readout(readouts, "uout"), _Readout(readouts, "zout")
+            else:
+                state_is_nan = np.isnan(uout.sum(-1))
+                uout = uout * ~state_is_nan[:, None]
+                is_silent = audio.dB_RMS(uout) <= task.silence_threshold
             # every sample that does not reach disk is attributed to a named
             # cause; the rescue counters stay 0 until the ladder is ported
             batch_stat = {
@@ -375,8 +743,6 @@ def run(args, save_dir, model_name, n_samples):
                 "nan_first_pass": int(state_is_nan.sum()),
                 "rescued_kernel_gmres": 0, "rescued_f64": 0,
             }
-            uout = uout * ~state_is_nan[:, None]
-            is_silent = audio.dB_RMS(uout) <= task.silence_threshold
             _, _, Nx_t, _, Nx_l, _ = fdm.get_derived_vars_host(
                 string.f0, string.kappa[:, None], 1.0 / sr, theta_t,
                 task.lambda_c, string.alpha[:, None], dtype=np.float32,
@@ -405,7 +771,7 @@ def run(args, save_dir, model_name, n_samples):
                     save_item, b, f"{save_dir}/{dx}-{b}", excitation, uout,
                     zout, state_u, state_z, v_r, F_H, u_H, string, bow, hammer,
                     Nx_t, Nx_l, sig0, sig1, bow_mask, hammer_mask, pluck_mask,
-                    consts_list,
+                    consts_list, keep_it,
                 ))
             if skipped_detail:
                 batch_stat["skipped"] = skipped_detail
@@ -417,6 +783,17 @@ def run(args, save_dir, model_name, n_samples):
             skip_stats.append(batch_stat)
             with open(f"{save_dir}/skip_stats.json", "w") as f:
                 json.dump(skip_stats, f, indent=1)
+            del results, state_u, state_z  # the next batch may reuse the memory
         for fut in pending:
             fut.result()
+    timing = stats.save_timing()
+    if timing:
+        # as the JAX package: the batches, the writer phases, and here the
+        # run's device-to-host bytes, the bytes of the state fields that
+        # stayed on the device, and per-batch width spreads
+        with open(f"{save_dir}/skip_stats.json", "w") as f:
+            json.dump({"batches": skip_stats, "save_timing": timing,
+                       "link_bytes": stats.link_bytes,
+                       "state_bytes": stats.state_bytes,
+                       "width_spread": stats.width_spread}, f, indent=1)
     return time_log
