@@ -37,12 +37,34 @@ Phases; any failure exits non-zero:
    state field's, two items against a host ``build_processed`` of their
    native-width state, the writer phases' times;
 10. the corpus recipe at B=48 (``tools/gen_watchdog.py``'s train split):
-   8 kept columns per item, compact keys, no run-dir wavs, audio-s/s.
+   8 kept columns per item, compact keys, no run-dir wavs, audio-s/s;
+11. the rescue ladder, fused: the corpus recipe with ``task.rescue_nan=true``
+   (B=48), at a length cut so that the f64 stage stays within about four
+   minutes (from a 256-step timing of the f64 rescue taken first, on the
+   host's CPU and, for the record, on the card): at least one first-pass
+   NaN, the counter identity per batch, every item finite, every
+   f64-rescued item through the host build;
+12. the rescue ladder, classic: ``model.excitation=null``, one batch of 24
+   drawn so that the first pass poisons a string early, the same length
+   rule, checked artifact by artifact, the spliced items' fields finite.
 
-Phases 4-10 each set the launch counts to 0 just before the run and read
+Phase 2 also prints ptxas's registers and spills of the GMRES instances.
+Phase 3 adds the GMRES instances (``gmres_rescue=True``) against their
+plain version: (n) draw (a) with ``coupling_iters=1``, so every step goes
+through GMRES, (o) the strong-coupling corner (alpha=23, f0=392) at the
+default cap, (p) the first ``model.excitation=null`` batch with
+``coupling_iters=1`` (two passes with bow and hammer); and the re-run as
+the ladder launches it, the first pass's NaN rows alone at their bucket
+groups' widths, in place: (q) of phase 11's draw and (r) of phase 12's,
+each against its plain version (the GMRES instances' JSON record), a
+whole-batch GMRES launch (bit for bit) and the first pass (healthy rows
+untouched).
+
+Phases 4-12 each set the launch counts to 0 just before the run and read
 them just after.  The line before the last is the kernels' JSON record, one
-entry per specialization and one for the bucketed launch; the last line is
-``{"ok": true, "device": {...}}``.
+entry per specialization, one for the bucketed launch and one per GMRES
+instance phases 11-12 launched; the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -68,6 +90,11 @@ STATE_ATOL, STATE_REL, READOUT_REL, FORCE_REL = 1.2e-5, 6e-4, 2e-4, 1e-3
 # string's at 5e-2 (largest 5.7e-3; PERF.md): a zout of 0, or one with a
 # wrong readout weight, is off by half its scale or more
 ZOUT_REL, ZOUT_STRING_REL = 2e-3, 5e-2
+# The GMRES instances only: a string's zout is held to at least 1e-6 of its
+# uout, what f32 resolves of z beside u; a bowed string's zout can lie
+# below it, and there the plain version's own f32 and f64 results differ by
+# its whole scale (1.7 of a 4.3e-12 zout under GMRES; PERF.md)
+ZOUT_FLOOR = 1e-6
 ARTIFACTS = {
     "output.wav", "output-u.wav", "output-z.wav", "simulation.npz",
     "string_params.npz", "bow_params.npz", "hammer_params.npz",
@@ -118,6 +145,26 @@ REPLACES = {
     "pluck-pickup": "torch_fdtd_string_tpu/ops/pallas_step.py:775",
     "bucketed": "torch_fdtd_string_tpu/ops/pallas_step.py:999",
 }
+GMRES_REPLACES = "torch_fdtd_string_tpu/ops/pallas_step.py:624"
+# steps (q) and (r) run past the first pass's earliest NaN (check_rerun)
+RERUN_AFTER = 4
+# phases 11 and 12, the rescue ladder (task.length is set from the f64 timing)
+LADDER_FUSED = [o for o in CORPUS48 if not o.startswith("task.rescue_nan")] + [
+    "task.rescue_nan=true"]
+# phase 12's draw: with proc.seed=97 the first pass poisons a plucked string
+# of the model.excitation=null batch (string 8, alpha 22.9) at step 286; the
+# GMRES re-run keeps it finite past step 320 but not to step 1500, and the
+# f64 stage keeps it finite, so both stages and the splice of the classic
+# ladder run.  (A hammered string poisoned at its strike, as with seeds 14,
+# 18 or 20, is kept finite by the re-run alone.)
+LADDER_CLASSIC = ["experiment=nsynth-like", "task.fuse_preprocess=false",
+                  "task.rescue_nan=true", "model.excitation=null",
+                  "task.num_samples=24", "task.batch_size=24", "proc.seed=97"]
+# seconds the f64 stage of phases 11 and 12 may take, each, and the factor
+# on a 256-step timing of the first pass's NaN strings: a string can cost
+# more per step (more GMRES restarts) as it nears its divergence.  Phase 12
+# gets less (30 s at least) when the run would not end by RUN_TARGET_S
+F64_BUDGET_S, F64_SAFETY, RUN_TARGET_S = 240.0, 1.25, 1000.0
 # NVIDIA H100 SXM data sheet: HBM rate, float32 rate outside the tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # float operations per live grid point, counted in csrc/string_step.cu: the
@@ -125,6 +172,11 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # sweep the z interpolation, relaxation and residuals, and two PCR solves
 # of 4 + 14 per level each
 OPS_STEP, OPS_SWEEP, OPS_PCR_LEVEL = 145, 46, 28
+# per Arnoldi iteration of the GMRES rescue and lane: the matvec (one
+# RHS-free sweep: two interpolations and stencils, 2 x 4 of the PCR set-up,
+# OPS_PCR_LEVEL per level), w = v - Gv, the new row's norm and scaling, and
+# at least one modified Gram-Schmidt row (dot product and update, 4)
+OPS_ARNOLDI = 42
 
 
 def smi():
@@ -159,8 +211,9 @@ def bench_inputs(B, length, seed, device, surface_integral=True):
     return simulate.kernel_inputs(string, consts, int(length * SR), device)
 
 
-def nsynth_inputs(overrides, device):
-    """The first batch the main path draws (seed ``proc.seed``)."""
+def nsynth_draw(overrides):
+    """The first batch the main path draws (seed ``proc.seed``): ``(task,
+    (string, bow, hammer, bow_mask, hammer_mask), consts)``."""
     from torch_fdtd_string_tpu_torch.run import CONFIG_DIR
     from torch_fdtd_string_tpu_torch.tasks import simulate
     from torch_fdtd_string_tpu_torch.utils.config import compose
@@ -181,8 +234,39 @@ def nsynth_inputs(overrides, device):
         relative_order=task.relative_order,
         surface_integral=task.surface_integral, collect_state=True,
     )
+    return task, (string, bow, hammer, bm, hm), consts
+
+
+def nsynth_inputs(overrides, device):
+    """string_chunked's args and kwargs for :func:`nsynth_draw`'s batch."""
+    from torch_fdtd_string_tpu_torch.tasks import simulate
+
+    task, (string, bow, hammer, bm, hm), consts = nsynth_draw(overrides)
     return simulate.kernel_inputs(string, consts, int(task.length * task.sr),
                                   device, bow, hammer, bm, hm)
+
+
+def strong_inputs(T, device, B=2):
+    """The strong-coupling corner (alpha=23, f0=392, kappa=0.03, a pluck of
+    0.01 at 0.4), the golden fixture's strings
+    (tests/test_golden_reference.py::_make_cfg), for ``T`` steps."""
+    from torch_fdtd_string_tpu_torch.core.params import triangular_np
+    from torch_fdtd_string_tpu_torch.ops import fdm
+
+    f0v, kappa, alpha = 392.0, 0.03, 23.0
+    k = 1.0 / SR
+    theta = fdm.get_theta(kappa, f0v, SR)
+    _, _, nx_t, _, nx_l, _ = fdm.get_derived_vars_np(f0v, 0.0, k, theta, 1.0, 1.0)
+    _, _, N_t, _, _, _ = fdm.get_derived_vars_np(f0v, kappa, k, theta, 1.0, alpha)
+    M_t, M_l = nx_t + 1, nx_l + 1
+    u0 = triangular_np(M_t, np.full(B, N_t + 1.0), np.full(B, 0.4), np.full(B, 0.01))
+    u0 = u0 * (np.arange(M_t)[None, :] < N_t + 1)
+    t = lambda x: torch.tensor(np.asarray(x), dtype=torch.float32, device=device)
+    args = (t(np.full((B, T), f0v)), t(np.full(B, kappa)), t(np.full(B, alpha)),
+            t(np.full(B, 0.4)), t(np.tile([[[1000.0, 20.0], [100.0, 20.0]]], (B, 1, 1))),
+            t(u0), t(u0), t(np.zeros((B, M_l))), t(np.zeros((B, M_l))))
+    return args, dict(k=k, theta_t=float(theta), lambda_c=1.0, M_t=M_t, M_l=M_l,
+                      surface_integral=False, collect_state=True, gmres_rescue=True)
 
 
 def truncate(inputs, T):
@@ -219,12 +303,14 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def compare(tag, got, ref):
+def compare(tag, got, ref, zout_floor=0.0):
     """Kernel vs plain version: identical NaN masks, f32 bounds on the
-    finite values, the probe traces included.  Returns the largest absolute
-    difference."""
+    finite values, the probe traces included; with an excitation each
+    string's zout is held to its own scale, at least ``zout_floor`` of its
+    uout's.  Returns the largest absolute difference."""
     uo, zo, aux = got
     ruo, rzo, raux = ref
+    r_uo = ruo.double().cpu().numpy()
     worst = 0.0
     pairs = [("uout", uo, ruo, "readout"), ("zout", zo, rzo, "readout"),
              ("state_u", aux["state_u"], raux["state_u"], "state"),
@@ -250,8 +336,10 @@ def compare(tag, got, ref):
         if name == "zout" and "v_r" in raux:
             d = np.where(fin, np.abs(g - r), 0.0).max(axis=1)
             s = np.where(fin, np.abs(r), 0.0).max(axis=1)
-            rel = float(np.max(d / np.maximum(s, 1e-300)))
-            ok = err <= ZOUT_REL * scale and bool((d <= ZOUT_STRING_REL * s).all())
+            u_s = np.where(np.isnan(r_uo), 0.0, np.abs(r_uo)).max(axis=1)
+            s_held = np.maximum(s, zout_floor * u_s)
+            rel = float(np.max(d / np.maximum(s_held, 1e-300)))
+            ok = err <= ZOUT_REL * scale and bool((d <= ZOUT_STRING_REL * s_held).all())
             note = f", worst per-string err / own scale {rel:.3e}"
         elif kind == "readout":
             ok = err <= READOUT_REL * scale + 1e-30
@@ -266,11 +354,12 @@ def compare(tag, got, ref):
     return worst
 
 
-def bound(args, kwargs, sweeps):
+def bound(args, kwargs, sweeps, gmres_iters=None):
     """The least time (ms) the card could take for this string-step call,
     and what bounds it: every input read once and every output written
     once at the HBM rate, or this run's float operations (the plain
-    version's sweep counts on the same inputs) at the float32 rate."""
+    version's sweep counts, and Arnoldi iterations with the GMRES rescue,
+    on the same inputs) at the float32 rate."""
     from torch_fdtd_string_tpu_torch.ops.string_kernel import grid_bounds, pcr_levels
 
     f0 = args[0]
@@ -286,8 +375,10 @@ def bound(args, kwargs, sweeps):
     lanes = np.maximum(bt, bl) - 1  # live grid points, N + 1
     levels = np.array([pcr_levels(int(n)) for n in lanes])
     n_sweeps = sweeps.sum(dim=0).cpu().numpy()
+    n_arnoldi = 0 if gmres_iters is None else gmres_iters.sum(dim=0).cpu().numpy()
     ops = float(np.sum(lanes * (T * OPS_STEP
-                                + n_sweeps * (OPS_SWEEP + OPS_PCR_LEVEL * levels))))
+                                + n_sweeps * (OPS_SWEEP + OPS_PCR_LEVEL * levels)
+                                + n_arnoldi * (OPS_ARNOLDI + OPS_PCR_LEVEL * levels))))
     t_bytes = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -305,6 +396,49 @@ def within_groups(out, groups):
         for w, rows in groups:
             aux[key][:, torch.as_tensor(rows, device=uout.device), w:] = 0.0
     return uout, zout, aux
+
+
+def named_fields(out):
+    """``(name, tensor)`` of every array a string-step call writes."""
+    uout, zout, aux = out
+    names = ["uout", "zout", "state_u", "state_z", "v_r", "F_H", "u_H"]
+    arrays = [uout, zout] + [aux.get(key) for key in names[2:]]
+    return ([(n, x) for n, x in zip(names, arrays) if x is not None]
+            + list(zip(("u1", "u2", "z1", "z2"), aux["carry"])))
+
+
+def out_fields(out):
+    return [x for _, x in named_fields(out)]
+
+
+def as_output(arrays, like):
+    """``(uout, zout, aux)`` from :func:`out_fields`'s list of copies of
+    ``like``'s arrays, with a fresh (T, B) sweep count."""
+    named = dict(zip([n for n, _ in named_fields(like)], arrays))
+    aux = {key: v for key, v in named.items() if key not in ("uout", "zout", "u1",
+                                                             "u2", "z1", "z2")}
+    aux["carry"] = tuple(named[key] for key in ("u1", "u2", "z1", "z2"))
+    aux["sweeps"] = torch.zeros(named["uout"].shape[::-1], dtype=torch.int32,
+                                device=named["uout"].device)
+    return named["uout"], named["zout"], aux
+
+
+def take_rows(out, idx):
+    """The rows ``idx`` of a call's outputs, as :func:`compare` reads them."""
+    uout, zout, aux = out
+    part = {key: aux[key][:, idx] for key in ("state_u", "state_z")}
+    part.update({key: aux[key][idx] for key in ("v_r", "F_H", "u_H") if key in aux})
+    return uout[idx], zout[idx], part
+
+
+def inputs_rows(inputs, idx):
+    """A call's args and kwargs cut to the strings ``idx``."""
+    args, kwargs = inputs
+    kwargs = dict(kwargs)
+    for key in ("bow", "hammer"):
+        if kwargs.get(key):
+            kwargs[key] = {k: v[idx] for k, v in kwargs[key].items()}
+    return tuple(a[idx] for a in args), kwargs
 
 
 def host_bounds(args):
@@ -396,7 +530,8 @@ def drive(phase, what, overrides, spec, card):
           f"{audio_s / wall:.2f} audio-s/s; of it simulate() (draws, kernel, "
           f"state to host) {sim_s:.2f} s [{card}]")
     return by_spec[spec], dict(kinds=kinds, pitched=pitched, wall=wall,
-                               audio_s=audio_s)
+                               audio_s=audio_s, by_spec=by_spec, stats=stats,
+                               save_dir=save_dir, items=items, task=task)
 
 
 def drive_fused(phase, what, overrides, keys, n_cols, card):
@@ -404,8 +539,9 @@ def drive_fused(phase, what, overrides, keys, n_cols, card):
     just before, read just after).  Every prepared item is checked: its
     ``n_cols`` ut wavs (and as many ua wavs with the modal baseline),
     ``vt.wav`` and the ``parameters.npz`` keys ``keys``; every written item
-    must come from the on-device post-processing; the device-to-host bytes
-    are held against the state field's.  Returns the run's stats."""
+    but the f64-rescued ones (``rescued_f64``) must come from the on-device
+    post-processing; the device-to-host bytes are held against the state
+    field's.  Returns the run's stats."""
     from torch_fdtd_string_tpu_torch import run as port_run
     from torch_fdtd_string_tpu_torch.ops.string_kernel import (
         reset_launch_counts,
@@ -428,8 +564,9 @@ def drive_fused(phase, what, overrides, keys, n_cols, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = string_chunked_bucketed.launches
+    by_spec = dict(string_chunked.launches_by_spec)
     print(f"[{phase}] {what}: bucketed group launches {launches}, by "
-          f"specialization {dict(string_chunked.launches_by_spec)}, wall {wall:.2f} s")
+          f"specialization {by_spec}, wall {wall:.2f} s")
     if launches < 1:
         raise AssertionError(f"[{phase}] the bucketed launch did not run")
     with open(os.path.join(save_dir, "skip_stats.json")) as f:
@@ -440,8 +577,11 @@ def drive_fused(phase, what, overrides, keys, n_cols, card):
     if len(items) != written or written < 1:
         raise AssertionError(f"[{phase}] {len(items)} prepared items, {written} written")
     timing = stats["save_timing"]
-    if timing["assemble"]["n"] != written or "host_build" in timing:
-        raise AssertionError(f"[{phase}] items not all from the device path: {timing}")
+    host_built = sum(b["rescued_f64"] for b in stats["batches"])
+    n_host = timing.get("host_build", {"n": 0})["n"]
+    if timing.get("assemble", {"n": 0})["n"] != written - host_built or n_host != host_built:
+        raise AssertionError(f"[{phase}] {host_built} items expected from the host "
+                             f"build, the rest from the device path: {timing}")
     n_ua = n_cols if "ua_f0" in keys else 0
     for d in items:
         names = os.listdir(os.path.join(prep, d))
@@ -464,8 +604,8 @@ def drive_fused(phase, what, overrides, keys, n_cols, card):
     with open(os.path.join(save_dir, "gpu_time.txt")) as f:
         sim_s = sum(float(line.split("\t")[1]) for line in f)
     phases = ", ".join(f"{k} {v['total_s']:.2f} s ({v['n']}x)" for k, v in timing.items())
-    print(f"[{phase}] {written} of {n} items prepared, every one from the device "
-          f"post-processing; width spread per batch {stats['width_spread']}; "
+    print(f"[{phase}] {written} of {n} items prepared, {written - host_built} from "
+          f"the device post-processing; width spread per batch {stats['width_spread']}; "
           f"run-dir items {len(run_items)}; NaN skips "
           f"{sum(b['nan_final'] for b in stats['batches'])}, silence skips "
           f"{sum(b['silent'] for b in stats['batches'])}")
@@ -477,7 +617,8 @@ def drive_fused(phase, what, overrides, keys, n_cols, card):
           f"{n * task.length / wall:.2f} audio-s/s; simulate() {sim_s:.2f} s; writer "
           f"threads: {phases} [{card}]")
     return dict(wall=wall, launches=launches, items=items, save_dir=save_dir,
-                run_items=run_items, audio_s=n * task.length, task=task)
+                run_items=run_items, audio_s=n * task.length, task=task,
+                by_spec=by_spec, stats=stats)
 
 
 def check_host_build(args, kwargs, prep, items, task, card):
@@ -513,6 +654,179 @@ def check_host_build(args, kwargs, prep, items, task, card):
               f"({err / peak:.2e} of it) [{card}]")
         if not err <= 5e-4 * peak + 1.0 / 8388607:
             raise AssertionError(f"[9] item {d}: device ut off the host build")
+
+
+def check_rerun(tag, inputs, dev, card):
+    """The ladder's stage-1 re-run as the main path launches it: the first
+    pass's NaN rows of a draw through the GMRES instance alone, at their
+    bucket groups' widths, in place.  Held bit for bit to a whole-batch
+    GMRES launch, the healthy rows to the first pass, and the re-run rows to
+    the plain version of the same re-run at the phase-3 bounds.  Returns the
+    instance's name and its JSON record.
+
+    The run ends RERUN_AFTER steps past the first pass's earliest NaN
+    within 320 steps: the string the first pass poisons is one whose
+    motion diverges there (its state grows ~30x per 8 steps, in float64
+    too), and that growth carries the rounding of the GMRES solve's block
+    reductions past the phase-3 bounds within a few more steps."""
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+    from torch_fdtd_string_tpu_torch.ops.string_kernel import (
+        string_chunked,
+        string_chunked_bucketed,
+    )
+
+    args, kwargs = truncate(inputs, 320)
+    nan = torch.isnan(string_chunked_bucketed(*args, host_bounds=host_bounds(args),
+                                              **kwargs)[0])
+    if not nan.any():
+        raise AssertionError(f"[3] {tag}: the first pass left no NaN row")
+    T = int(nan.float().argmax(dim=1)[nan.any(dim=1)].min()) + 1 + RERUN_AFTER
+    args, kwargs = truncate(inputs, T)
+    hb = host_bounds(args)
+    gk = dict(kwargs, gmres_rescue=True)
+    first = string_chunked_bucketed(*args, host_bounds=hb, **kwargs)
+    rows = torch.nonzero(torch.isnan(first[0].sum(-1)))[:, 0].cpu().numpy()
+    idx = torch.as_tensor(rows, device=dev)
+    saved = [x.clone() for x in out_fields(first)]
+    whole = string_chunked_bucketed(*args, host_bounds=hb, **gk)
+    rerun = lambda: sk.string_chunked_rerun(*args, rows=rows, out=first,
+                                            host_bounds=hb, **gk)
+    sk.reset_launch_counts()
+    rerun()
+    (spec,) = string_chunked.launches_by_spec
+    same = lambda a, b: bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+    for (name, a), b in zip(named_fields(first), out_fields(whole)):
+        if not same(a, b):
+            raise AssertionError(f"[3] {tag} {name}: rows-only re-run differs "
+                                 "from the whole-batch GMRES launch")
+    healthy = torch.ones(args[0].shape[0], dtype=torch.bool, device=dev)
+    healthy[idx] = False
+    for a, b in zip(out_fields(first), saved):
+        sel = (lambda x: x[:, healthy]) if a.dim() == 3 else (lambda x: x[healthy])
+        if not same(sel(a), sel(b)):
+            raise AssertionError(f"[3] {tag}: a healthy row changed")
+    # the plain version of the same re-run, from the same first pass
+    ref, plain_ms = timed_once(lambda: sk.string_chunked_rerun_reference(
+        *args, rows=rows, out=as_output(saved, first), host_bounds=hb, **gk))
+    worst = compare(tag, take_rows(first, idx), take_rows(ref, idx),
+                    zout_floor=ZOUT_FLOOR)
+    still = int(torch.isnan(first[0][idx].sum(-1)).sum())
+    amp = lambda sel: float(first[2]["state_u"][:, sel].abs().max())
+    # both calls are idempotent: the re-run writes the same values again
+    rows_ms = cuda_ms(rerun, reps=5)
+    whole_ms = cuda_ms(lambda: string_chunked_bucketed(*args, host_bounds=hb, **gk),
+                       reps=5)
+    iters = ref[2]["gmres_iters"][:, idx]
+    bound_ms, bound_by = bound(*inputs_rows((args, gk), idx),
+                               ref[2]["sweeps"][:, idx], iters)
+    rescued = iters > 0
+    print(f"[3] {tag}, T={T}: {spec}, first-pass NaN rows {rows.tolist()}, "
+          f"{len(rows) - still} finite after the GMRES instance (max |state_u| "
+          f"{amp(idx):.3e} against the healthy rows' {amp(healthy):.3e}); rows-only re-run "
+          f"{rows_ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}); a whole-batch GMRES launch {whole_ms:.3f} ms, equal in "
+          f"every field; healthy rows untouched; string-steps through GMRES "
+          f"{int(rescued.sum())} of {rescued.numel()}, mean Arnoldi iterations "
+          f"{float(iters[rescued].float().mean()) if rescued.any() else 0.0:.2f} "
+          f"[{card}]")
+    return spec, dict(max_abs_err=worst, ms=rows_ms, plain_ms=plain_ms,
+                      bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+
+
+def ptxas_report(log):
+    """ptxas's resource lines per string_step instance, by specialization
+    name, from nvcc's ``-Xptxas=-v`` messages."""
+    import re
+
+    exc = {("0", "0"): "pluck", ("1", "0"): "bow", ("0", "1"): "hammer",
+           ("1", "1"): "mix"}
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"string_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+        if "Compiling entry function" in line:
+            name = None
+            if m:
+                bow, ham, surf, gm = m.groups()
+                name = (exc[(bow, ham)] + ("" if surf == "1" else "-pickup")
+                        + ("-gmres" if gm == "1" else ""))
+                out[name] = []
+        elif name and ("registers" in line or "spill" in line):
+            out[name].append(line.replace("ptxas info    :", "").strip())
+            if "registers" in line:  # the entry's own report ends here
+                name = None
+    return out
+
+
+def ladder_length(phase, overrides, dev, card, budget_s, on_card=False):
+    """The ``task.length`` of a ladder phase: the first pass over the
+    config's whole length finds the NaN strings; 256 steps of their f64
+    rescue are timed on the host's CPU (the ladder's own device) and, with
+    ``on_card``, for the record on the card (the same engine in float64);
+    the length is what ``budget_s`` buys on the CPU at F64_SAFETY times
+    that rate, or 64 steps past the earliest NaN if that is longer and at
+    most twice as long, and never longer than the config's."""
+    from torch_fdtd_string_tpu_torch.ops.string_kernel import string_chunked_bucketed
+    from torch_fdtd_string_tpu_torch.tasks import simulate
+
+    task, (string, bow, hammer, bm, hm), consts = nsynth_draw(overrides)
+    Nt = int(round(task.length * SR))
+    args, kwargs = simulate.kernel_inputs(string, consts, Nt, dev, bow, hammer, bm, hm)
+    uo = string_chunked_bucketed(*args, host_bounds=host_bounds(args), **kwargs)[0]
+    nan = torch.isnan(uo)
+    rows = torch.nonzero(nan.any(dim=1))[:, 0].cpu().numpy()
+    if len(rows) == 0:
+        print(f"[{phase}] the first pass over {task.length:g} s leaves no NaN string; "
+              f"length stays {task.length:g} s")
+        return float(task.length)
+    first_nan = int(nan[torch.as_tensor(rows, device=dev)].float().argmax(dim=1).min()) + 2
+    t0 = time.perf_counter()
+    simulate.rescue_nan_elements(string, bow, hammer, bm, hm, rows, consts, 258, 258, SR)
+    per_step = (time.perf_counter() - t0) / 256
+    note = ""
+    if on_card:
+        t0 = time.perf_counter()
+        simulate.process_engine(
+            *simulate.rescue_inputs(string, bow, hammer, bm, hm, rows, consts), 258, 258,
+            dev, collect_state=consts.collect_state)
+        torch.cuda.synchronize()
+        note = (f", {(time.perf_counter() - t0) / 256 * 1e3:.1f} ms per step on the "
+                f"card (float64, same engine)")
+    budget = int(budget_s / (F64_SAFETY * per_step))
+    steps = min(Nt, max(budget, first_nan + 64) if first_nan + 64 <= 2 * budget else budget)
+    length = steps / SR
+    print(f"[{phase}] first pass over {task.length:g} s: NaN strings {rows.tolist()}, "
+          f"the earliest at step {first_nan}; f64 rescue of these {len(rows)} strings: "
+          f"{per_step * 1e3:.1f} ms per step on the host's CPU{note}, 256 steps timed; "
+          f"budget {budget_s:.0f} s; task.length cut to {length:g} s ({steps} steps) "
+          f"[{card}]")
+    return length
+
+
+def check_ladder(phase, batches, task, wall, card, need_nan=False):
+    """The ladder's counters: nan_first_pass = rescued_kernel_gmres +
+    rescued_f64 + nan_final in every batch; with ``need_nan`` at least one
+    first-pass NaN.  Prints them, the f64 stage's seconds per step, the
+    run's wall and audio-s/s."""
+    keys = ("nan_first_pass", "rescued_kernel_gmres", "rescued_f64", "nan_final")
+    for b in batches:
+        if b[keys[0]] != b[keys[1]] + b[keys[2]] + b[keys[3]]:
+            raise AssertionError(f"[{phase}] batch {b['it']}: counters {b}")
+    tot = {key: sum(b[key] for b in batches) for key in keys}
+    if need_nan and tot["nan_first_pass"] < 1:
+        raise AssertionError(f"[{phase}] no first-pass NaN: the ladder did not run")
+    steps = int(round(task.length * SR)) - 2
+    f64_s = sum(b.get("rescue_f64_s", 0.0) for b in batches)
+    n = len(batches) * int(task.batch_size)
+    print(f"[{phase}] ladder counters {tot}; f64 stage {f64_s:.2f} s = "
+          f"{f64_s / steps * 1e3:.2f} ms per step over {steps} steps; whole run "
+          f"{wall:.2f} s for {n * task.length:g} audio-s = "
+          f"{n * task.length / wall:.3f} audio-s/s [{card}]")
+
+
+def add_gmres(acc, by_spec):
+    for spec, n in by_spec.items():
+        if spec.endswith("-gmres"):
+            acc[spec] = acc.get(spec, 0) + n
 
 
 def main():
@@ -553,6 +867,11 @@ def main():
     build.load_kernel_library("string_step")
     print(f"[2] string_step built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_seconds.get('string_step', 0.0):.2f} s)")
+    ptxas = ptxas_report(build.build_log.get("string_step", ""))
+    print(f"[2] {len(ptxas)} instances compiled; the GMRES instances' ptxas report:")
+    for name, lines in ptxas.items():
+        if name.endswith("-gmres"):
+            print(f"[2]   {name}: {' | '.join(lines)}")
 
     # ---- 3. kernel vs plain version on the card, float32, per specialization
     shape_b = nsynth_inputs(NSYNTH, dev)
@@ -640,6 +959,43 @@ def main():
             record["bucketed"] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       library_ms=None)
+
+    # the GMRES instances against their plain version; the JSON record holds
+    # the re-runs of (q) and (r), the main path's shapes
+    gm_record = {}
+    for tag, inputs, over in (
+        ("(n) B=4 bench draw, coupling_iters=1",
+         bench_inputs(4, 0.02, 7, dev), dict(coupling_iters=1)),
+        ("(o) strong coupling alpha=23 f0=392, cap 24",
+         strong_inputs(256, dev), {}),
+        ("(p) model.excitation=null B=24, coupling_iters=1",
+         nsynth_inputs(NSYNTH + MIX, dev), dict(coupling_iters=1)),
+    ):
+        args, kwargs = truncate(inputs, 256)
+        kwargs = dict(kwargs, gmres_rescue=True, **over)
+        print(f"[3] {tag}: B={args[0].shape[0]}, M_t={kwargs['M_t']}, "
+              f"M_l={kwargs['M_l']}, T=256, GMRES instance")
+        got = string_chunked(*args, **kwargs)
+        ref, plain_ms = timed_once(lambda: string_chunked_reference(*args, **kwargs))
+        compare(tag, got, ref, zout_floor=ZOUT_FLOOR)
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[2]["state_u"]).all()):
+            raise AssertionError(f"[3] {tag}: not finite")
+        ms = cuda_ms(lambda: string_chunked(*args, **kwargs), reps=3)
+        iters = ref[2]["gmres_iters"]
+        bound_ms, bound_by = bound(args, kwargs, ref[2]["sweeps"], iters)
+        rescued = iters > 0
+        print(f"[3] {tag}: per 256 steps kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"bound {bound_ms:.5f} ms ({bound_by}); string-steps through GMRES "
+              f"{int(rescued.sum())} of {rescued.numel()}, mean Arnoldi iterations "
+              f"{float(iters[rescued].float().mean()) if rescued.any() else 0.0:.2f} "
+              f"[{card}]")
+
+    # (q), (r) the re-run as the ladder launches it: the first pass's NaN
+    # rows of phase 11's and phase 12's draws
+    for tag, inputs in (("(q) phase 11's draw, corpus recipe B=48", shape_l),
+                        ("(r) phase 12's draw, model.excitation=null B=24",
+                         nsynth_inputs(LADDER_CLASSIC, dev))):
+        spec, gm_record[spec] = check_rerun(tag, inputs, dev, card)
     print(f"[3] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4-8. the classic paths -------------------------------------------------
@@ -696,12 +1052,43 @@ def main():
         raise AssertionError(f"[10] {corpus['launches']} bucket group(s), not 2 or more")
     print(f"[10] corpus recipe B=48: {corpus['audio_s'] / corpus['wall']:.2f} "
           f"audio-s/s end to end [{card}]")
+    print(f"[10] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 11-12. the rescue ladder ----------------------------------------------
+    gm_launches = {}
+    length = ladder_length(11, LADDER_FUSED, dev, card, F64_BUDGET_S, on_card=True)
+    lad = drive_fused(11, "rescue ladder, corpus recipe B=48 (fused)",
+                      LADDER_FUSED + [f"task.length={length}"], PREP_KEYS_CORPUS, 8, card)
+    check_ladder(11, lad["stats"]["batches"], lad["task"], lad["wall"], card,
+                 need_nan=True)
+    add_gmres(gm_launches, lad["by_spec"])
+
+    left = max(RUN_TARGET_S - (time.perf_counter() - t_start) - 60.0, 30.0)
+    length = ladder_length(12, LADDER_CLASSIC, dev, card, min(F64_BUDGET_S, left))
+    _, lad = drive(12, "rescue ladder, model.excitation=null B=24 (classic)",
+                   LADDER_CLASSIC + [f"task.length={length}"], "mix", card)
+    check_ladder(12, lad["stats"], lad["task"], lad["wall"], card, need_nan=True)
+    for b in lad["stats"]:
+        for r in b.get("rescue_f64_rows", []):
+            z = np.load(os.path.join(lad["save_dir"], f"{b['it']}-{r}", "simulation.npz"))
+            if not all(np.isfinite(z[key]).all() for key in FIELDS):
+                raise AssertionError(f"[12] spliced item {b['it']}-{r} not finite")
+            print(f"[12] spliced item {b['it']}-{r}: every field of simulation.npz finite")
+    add_gmres(gm_launches, lad["by_spec"])
+    if not gm_launches:
+        raise AssertionError("[11-12] no GMRES instance launched")
+    missing = set(gm_launches) - set(gm_record)
+    if missing:
+        raise AssertionError(f"[11-12] GMRES instances without a phase-3 record: {missing}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [dict(
         name=f"string_step[{spec}]", route="cuda", source=KERNEL_SRC,
         replaces=REPLACES[spec], launches=launches[spec], **record[spec],
-    ) for spec in REPLACES]}))
+    ) for spec in REPLACES] + [dict(
+        name=f"string_step[{spec}]", route="cuda", source=KERNEL_SRC,
+        replaces=GMRES_REPLACES, launches=n, **gm_record[spec],
+    ) for spec, n in sorted(gm_launches.items())]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

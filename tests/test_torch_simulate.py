@@ -136,7 +136,7 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("override,what", [
-    ("task.rescue_nan=true", "rescue ladder"),
+    ("task.write_during_process=true", "writing during the process"),
     ("task.plot=true", "plots"),
 ])
 def test_unported_run_options_raise(tmp_path, override, what):

@@ -112,7 +112,6 @@ def test_diverged_element_does_not_poison_batch(workload):
 
 UNPORTED = {
     "manufactured": dict(manufactured=True),
-    "gmres_rescue": dict(gmres_rescue=True),
     "coupling_fixed": dict(coupling_fixed=2),
 }
 

@@ -2,12 +2,13 @@
 // independent strings in one launch.
 //
 // Replaces torch_fdtd_string_tpu/ops/pallas_step.py::_kernel with adaptive
-// damped block Gauss-Seidel coupling and poison-only exits
-// (gmres_rescue=False), in eight compile-time specializations: with or
-// without the bow branch, with or without the hammer branch, and the
-// surface-integral or the interpolated pickup readout; optional
-// collect_state streaming.  The plain PyTorch version of the same algorithm
-// is ops/string_kernel.py::string_chunked_reference.
+// damped block Gauss-Seidel coupling, in sixteen compile-time
+// specializations: with or without the bow branch, with or without the
+// hammer branch, the surface-integral or the interpolated pickup readout,
+// and poison-only exits (gmres_rescue=False, the first pass) or the in-kernel
+// GMRES rescue (kGmres, the rescue ladder's re-run); optional collect_state
+// streaming.  The plain PyTorch version of the same algorithm is
+// ops/string_kernel.py::string_chunked_reference.
 //
 // Design: one CTA per string, one thread per grid point.  The block width W
 // is max(M_t, M_l) rounded up to whole warps (288 for the first nsynth-like
@@ -34,6 +35,18 @@
 // collect_state, M_t + M_l floats of state out per string and step, written
 // coalesced.  Making it fast (several strings per CTA, warp-level PCR with
 // shuffles, fewer barriers) is later work.
+//
+// The GMRES rescue (kGmres; pallas_step.py:579-764): a string whose sweeps
+// exit untrusted (hopeless, non-finite, or above tolerance at the cap)
+// solves the step's coupled system again by GMRES(16) on the z fixed point
+// (I - G) z = c, G z the z of one RHS-free sweep from z: the matvec is two
+// PCR solves and the interpolations, the Krylov basis lives in shared
+// memory (17 W floats after the sweep arrays), modified Gram-Schmidt takes
+// one block reduction per basis row, and every thread runs the Givens
+// recurrence alike from the reduced values while thread 0 keeps R, g, cs
+// and sn in shared memory and back-substitutes.  `bad` comes from block
+// reductions, so the whole CTA takes the branch or none of it does.  It is
+// compiled out of the first pass's instances, whose code it would slow.
 //
 // Width buckets (replaces pallas_step.py::string_chunked_bucketed and
 // _build_bucketed_fn): a launch may run a subset of a batch at a narrower
@@ -72,7 +85,7 @@
 // `rows`, B_rows = B, ld_t = M_t and ld_l = M_l.
 struct LaunchArgs {
   int struct_size, B, T, M_t, M_l, W, M_t_sem, coupling_iters;
-  int has_bow, has_hammer, surface_integral;
+  int has_bow, has_hammer, surface_integral, gmres;
   int B_rows, ld_t, ld_l;
   double k, theta, lambda_c, relative_error;
   const int *rows;
@@ -99,6 +112,15 @@ constexpr float kHammerClamp = -0.01f;  // M_HD_CLAMP, pallas_step.py:46
 constexpr int kHammerMaxIter = 40;      // KernelConsts.hammer_max_iter
 constexpr int kNumArrays = 19;  // W-wide shared arrays, see the layout below
 constexpr int kRedFloats = 128;
+// the GMRES rescue: Krylov dimension (KernelConsts.gmres_m), its W-wide
+// basis rows, and the floats of its small arrays (R m x m, g m+1, cs m,
+// sn m, the Hessenberg column m+1, y m; 338, rounded up)
+constexpr int kGmresM = 16;
+constexpr int kGmresRows = kGmresM + 1;
+constexpr int kGmresSmall = 352;
+// happy-breakdown guard of the rescue's divisions: sqrt(FLT_MIN)
+// (pallas_step.py:611)
+constexpr float kTiny = 1.0842021724855044e-19f;
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   // max that propagates NaN, as jnp.max / torch.amax do
@@ -108,6 +130,11 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 __device__ __forceinline__ float nan_sign(float x) {
   // jnp.sign: NaN stays NaN, a signed zero stays itself
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : x);
+}
+
+__device__ __forceinline__ float sdiv(float a, float b) {
+  // a / b, 0 where |b| <= kTiny (pallas_step.py:613-615)
+  return fabsf(b) > kTiny ? a / (b == 0.0f ? 1.0f : b) : 0.0f;
 }
 
 __device__ __forceinline__ float nan_to_num(float x) {
@@ -202,7 +229,7 @@ __device__ __forceinline__ float pcr(float sub, float diag, float sup, float rhs
   return d;
 }
 
-template <bool kBow, bool kHammer, bool kSurface>
+template <bool kBow, bool kHammer, bool kSurface, bool kGmres>
 __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   constexpr bool kExc = kBow || kHammer;
   constexpr int kStepSums = (kBow ? 1 : 0) + (kHammer ? 2 : 0);
@@ -230,6 +257,16 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   float* sZc = sm + 18 * W;     // current z iterate
   float* sRc = sm + kNumArrays * W;  // bow force profile (bow only)
   float* sred = sm + (kNumArrays + (kBow ? 1 : 0)) * W;
+  // the GMRES rescue (kGmres only): Krylov basis rows V_0..V_m, then R
+  // (column i at i*m), g, cs, sn, the Hessenberg column and y, all written
+  // by thread 0 and read after a barrier
+  float* sV = sred + kRedFloats;
+  float* sR = sV + kGmresRows * W;
+  float* sG = sR + kGmresM * kGmresM;
+  float* sCs = sG + kGmresRows;
+  float* sSn = sCs + kGmresM;
+  float* sH = sSn + kGmresM;
+  float* sY = sH + kGmresRows;
 
   su1[i] = i < p.M_t ? p.u1[(size_t)b * p.ld_t + i] : 0.0f;
   su2[i] = i < p.M_t ? p.u2[(size_t)b * p.ld_t + i] : 0.0f;
@@ -411,23 +448,22 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       }
     }
 
-    // ---- adaptive damped block Gauss-Seidel (pallas_step.py:505-578) ------
-    float u_c = u1, z_c = z1, omega = 1.0f, prev = INFINITY, scale_u = 0.0f;
-    float v_rel = 0.0f, F_H = 0.0f, u_H = 0.0f;  // probe values of the last sweep
-    bool hopeless = false;
-    float K_tl = K_tl1;  // sweep 1 reuses the RHS pass's z interpolation
-    for (int sweep = 0;; ++sweep) {
+    // excitation RHS linearized at the iterate u_c (pallas_step.py:452-503),
+    // shared by the sweeps and the GMRES rescue: this lane's rhs_u, and
+    // the probe values.  `first` selects the bow's first-iterate probe
+    // velocity (u1 - u2) / k.  Called by every thread (block reductions).
+    auto exc_rhs = [&](float u_c, bool first, float& v_rel, float& F_H,
+                       float& u_H) -> float {
+      float rhs = rhs_u0;
       if constexpr (kExc) {
-        // excitation RHS linearized at the iterate u_c (pallas_step.py:452-503)
         float s[kSweepSums];
         int j = 0;
         if constexpr (kBow) {
-          const float du = sweep == 0 ? u1 - u2 : u_c - u1;
+          const float du = first ? u1 - u2 : u_c - u1;
           s[j++] = sRc[i] * (du / k - v_b);
         }
         if constexpr (kHammer) s[j++] = eps_prof * u_c;
         block_reduce<kSweepSums, false>(s, sred);
-        float rhs = rhs_u0;
         if constexpr (kBow) {
           v_rel = s[0];
           const float phi = nan_sign(v_rel) * (phi1 + (1.0f - phi1) * expf(-phi0 * fabsf(v_rel)));
@@ -451,20 +487,24 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
           const float G_H = -p.k2 * eps_prof * (M_r * F_H);
           rhs = rhs + hm * nan_to_num(G_H);
         }
-        rhs_u = rhs * live_t;
       }
-      if (sweep > 0) {
-        sZc[i] = z_c;
-        __syncthreads();
-        const float izc = interp(sZc, lt);
-        sIz1[i] = izc;
-        __syncthreads();
-        const float q = lam * ((izc - (i > 0 ? sIz1[i - 1] : 0.0f)) / h_t);
-        sQ1[i] = q;
-        __syncthreads();
-        K_tl = -phi_pow * (((i + 1 < W ? sQ1[i + 1] : 0.0f) - q) / h_t);
-      }
-      const float u_g = pcr(sub_t, diag_t, sup_t, -rhs_u - K_tl, pcr_buf, p.levels);
+      return rhs * live_t;
+    };
+    // K_tl of a z iterate: the l->t interpolation and -phi_pow Dxf(Lambda
+    // Dxb .) through shared memory
+    auto K_tl_of = [&](float z_in) -> float {
+      sZc[i] = z_in;
+      __syncthreads();
+      const float izc = interp(sZc, lt);
+      sIz1[i] = izc;
+      __syncthreads();
+      const float q = lam * ((izc - (i > 0 ? sIz1[i - 1] : 0.0f)) / h_t);
+      sQ1[i] = q;
+      __syncthreads();
+      return -phi_pow * (((i + 1 < W ? sQ1[i + 1] : 0.0f) - q) / h_t);
+    };
+    // the z half of a sweep: K_lt of the new u, then the PCR solve on l
+    auto z_solve = [&](float u_g, float rhs_zs) -> float {
       sUg[i] = u_g;
       __syncthreads();
       sP[i] = lam * ((u_g - (i > 0 ? sUg[i - 1] : 0.0f)) / h_t);
@@ -473,7 +513,19 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       sIu[i] = iu;
       __syncthreads();
       const float K_lt = -phi_pow * (((i + 1 < W ? sIu[i + 1] : 0.0f) - iu) / h_l);
-      const float z_g = pcr(sub_l, diag_l, sup_l, -rhs_z - K_lt, pcr_buf, p.levels);
+      return pcr(sub_l, diag_l, sup_l, -rhs_zs - K_lt, pcr_buf, p.levels);
+    };
+
+    // ---- adaptive damped block Gauss-Seidel (pallas_step.py:505-578) ------
+    float u_c = u1, z_c = z1, omega = 1.0f, prev = INFINITY, scale_u = 0.0f;
+    float v_rel = 0.0f, F_H = 0.0f, u_H = 0.0f;  // probe values of the last sweep
+    bool hopeless = false;
+    float K_tl = K_tl1;  // sweep 1 reuses the RHS pass's z interpolation
+    for (int sweep = 0;; ++sweep) {
+      if constexpr (kExc) rhs_u = exc_rhs(u_c, sweep == 0, v_rel, F_H, u_H);
+      if (sweep > 0) K_tl = K_tl_of(z_c);
+      const float u_g = pcr(sub_t, diag_t, sup_t, -rhs_u - K_tl, pcr_buf, p.levels);
+      const float z_g = z_solve(u_g, rhs_z);
 
       const float u_c2 = u_c + omega * (u_g - u_c);
       const float z_c2 = z_c + omega * (z_g - z_c);
@@ -492,10 +544,90 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       if (!live_err || sweep + 1 >= p.coupling_iters) break;
     }
 
-    // ---- poison untrusted exits, Dirichlet rows (pallas_step.py:593-609,
-    // 765-766); multiplying keeps a NaN row NaN ------------------------------
+    // ---- untrusted exits (pallas_step.py:593-609): hopeless, non-finite or
+    // above tolerance at the sweep cap; uniform across the block.  Poisoned,
+    // or in the kGmres instance solved again by GMRES (:610-764) ------------
     const bool bad = hopeless || !(prev < INFINITY) || prev > inner_eps * scale_u;
-    const float u_n = (bad ? NAN : u_c) * live_t * (i != 0 ? 1.0f : 0.0f) *
+    if constexpr (kGmres) {
+      if (bad) {
+        // GMRES(m) on (I - G) z = c from z = 0, G z the z of one RHS-free
+        // sweep from z: one pass, or two with an excitation, the second's
+        // RHS linearized at the first pass's u
+        float u_lin = u1, z_sol = 0.0f, relres = 0.0f;
+        for (int pass = 0; pass < (kExc ? 2 : 1); ++pass) {
+          const float rhs_p = exc_rhs(u_lin, pass == 0, v_rel, F_H, u_H);
+          const float cvec = z_solve(pcr(sub_t, diag_t, sup_t, -rhs_p - K_tl_of(0.0f),
+                                         pcr_buf, p.levels),
+                                     rhs_z);
+          float r1[1] = {cvec * cvec};
+          block_reduce<1, false>(r1, sred);
+          const float beta = sqrtf(r1[0]);
+          sV[i] = cvec * sdiv(1.0f, beta);
+          float g_cur = beta, res = beta;
+          int n_it = 0;
+#pragma unroll 1
+          for (int ii = 0; ii < kGmresM && res > 1e-6f * beta; ++ii) {
+            const float vi = sV[ii * W + i];
+            const float gz = z_solve(pcr(sub_t, diag_t, sup_t, -0.0f - K_tl_of(vi),
+                                         pcr_buf, p.levels),
+                                     0.0f);
+            float w = vi - gz;
+            // modified Gram-Schmidt, one block reduction per basis row
+#pragma unroll 1
+            for (int j = 0; j <= ii; ++j) {
+              const float vj = sV[j * W + i];
+              float h[1] = {w * vj};
+              block_reduce<1, false>(h, sred);
+              w = w - h[0] * vj;
+              if (i == 0) sH[j] = h[0];
+            }
+            float hn[1] = {w * w};
+            block_reduce<1, false>(hn, sred);  // its barrier publishes sH
+            const float hlast = sqrtf(hn[0]);
+            sV[(ii + 1) * W + i] = w * sdiv(1.0f, hlast);
+            // the earlier Givens rotations on the new column, then its own
+            float a = sH[0];
+#pragma unroll 1
+            for (int j = 0; j < ii; ++j) {
+              const float b = sH[j + 1], cj = sCs[j], sj = sSn[j];
+              const float rj = cj * a + sj * b;
+              a = -sj * a + cj * b;
+              if (i == 0) sR[ii * kGmresM + j] = rj;
+            }
+            const float den = sqrtf(a * a + hlast * hlast);
+            const float ci = sdiv(a, den), si = sdiv(hlast, den);
+            if (i == 0) {
+              sCs[ii] = ci;
+              sSn[ii] = si;
+              sR[ii * kGmresM + ii] = den;
+              sG[ii] = ci * g_cur;
+            }
+            g_cur = -si * g_cur;
+            res = fabsf(g_cur);
+            ++n_it;
+          }
+          __syncthreads();  // R, g and the last basis row
+          if (i == 0) {  // back substitution on R y = g
+            for (int i2 = n_it - 1; i2 >= 0; --i2) {
+              float acc = sG[i2];
+              for (int j = i2 + 1; j < n_it; ++j) acc = acc - sR[j * kGmresM + i2] * sY[j];
+              sY[i2] = sdiv(acc, sR[i2 * kGmresM + i2]);
+            }
+          }
+          __syncthreads();
+          z_sol = 0.0f;
+          for (int i2 = 0; i2 < n_it; ++i2) z_sol = z_sol + sY[i2] * sV[i2 * W + i];
+          relres = sdiv(res, beta);
+          u_lin = pcr(sub_t, diag_t, sup_t, -rhs_p - K_tl_of(z_sol), pcr_buf, p.levels);
+        }
+        // accepted when the Krylov residual is small, else poisoned
+        u_c = relres <= 1e-3f ? u_lin : NAN;
+        z_c = z_sol;
+      }
+    }
+    // ---- Dirichlet rows (pallas_step.py:765-766); multiplying keeps a NaN
+    // row NaN ----------------------------------------------------------------
+    const float u_n = ((bad && !kGmres) ? NAN : u_c) * live_t * (i != 0 ? 1.0f : 0.0f) *
                       (itf != N_t ? 1.0f : 0.0f);
     const float z_n = z_c * live_l * (i != 0 ? 1.0f : 0.0f) * (itf != N_l ? 1.0f : 0.0f);
 
@@ -557,11 +689,13 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   }
 }
 
-template <bool kBow, bool kHammer, bool kSurface>
+template <bool kBow, bool kHammer, bool kSurface, bool kGmres>
 cudaError_t launch(const Params& p, int W, cudaStream_t stream) {
   const size_t smem =
-      (static_cast<size_t>(kNumArrays + (kBow ? 1 : 0)) * W + kRedFloats) * sizeof(float);
-  auto kernel = string_step_kernel<kBow, kHammer, kSurface>;
+      (static_cast<size_t>(kNumArrays + (kBow ? 1 : 0)) * W + kRedFloats +
+       (kGmres ? static_cast<size_t>(kGmresRows) * W + kGmresSmall : 0)) *
+      sizeof(float);
+  auto kernel = string_step_kernel<kBow, kHammer, kSurface, kGmres>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -620,16 +754,25 @@ extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  const int spec = (has_bow ? 4 : 0) | (has_hammer ? 2 : 0) | (surface ? 1 : 0);
+  const int spec = (a->gmres != 0 ? 8 : 0) | (has_bow ? 4 : 0) | (has_hammer ? 2 : 0) |
+                   (surface ? 1 : 0);
   switch (spec) {
-    case 0: err = launch<false, false, false>(p, W, s); break;
-    case 1: err = launch<false, false, true>(p, W, s); break;
-    case 2: err = launch<false, true, false>(p, W, s); break;
-    case 3: err = launch<false, true, true>(p, W, s); break;
-    case 4: err = launch<true, false, false>(p, W, s); break;
-    case 5: err = launch<true, false, true>(p, W, s); break;
-    case 6: err = launch<true, true, false>(p, W, s); break;
-    default: err = launch<true, true, true>(p, W, s); break;
+    case 0: err = launch<false, false, false, false>(p, W, s); break;
+    case 1: err = launch<false, false, true, false>(p, W, s); break;
+    case 2: err = launch<false, true, false, false>(p, W, s); break;
+    case 3: err = launch<false, true, true, false>(p, W, s); break;
+    case 4: err = launch<true, false, false, false>(p, W, s); break;
+    case 5: err = launch<true, false, true, false>(p, W, s); break;
+    case 6: err = launch<true, true, false, false>(p, W, s); break;
+    case 7: err = launch<true, true, true, false>(p, W, s); break;
+    case 8: err = launch<false, false, false, true>(p, W, s); break;
+    case 9: err = launch<false, false, true, true>(p, W, s); break;
+    case 10: err = launch<false, true, false, true>(p, W, s); break;
+    case 11: err = launch<false, true, true, true>(p, W, s); break;
+    case 12: err = launch<true, false, false, true>(p, W, s); break;
+    case 13: err = launch<true, false, true, true>(p, W, s); break;
+    case 14: err = launch<true, true, false, true>(p, W, s); break;
+    default: err = launch<true, true, true, true>(p, W, s); break;
   }
   return static_cast<int>(err);
 }

@@ -25,12 +25,13 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 _LOCK = threading.Lock()
 _LIBS = {}  # name -> ctypes.CDLL, loaded once per process
 build_seconds = {}  # name -> wall seconds of the nvcc run, when one ran
+build_log = {}  # name -> nvcc's messages (ptxas registers and spills per kernel)
 
 
 def find_nvcc():
@@ -62,6 +63,7 @@ def build_kernel_library(name):
             f"nvcc failed on {src} (exit {res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a torn file
     build_seconds[name] = time.perf_counter() - t0
+    build_log[name] = res.stderr
     return out
 
 

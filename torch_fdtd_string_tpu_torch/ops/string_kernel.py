@@ -20,17 +20,22 @@ is :func:`string_chunked_bucketed_reference`.
 
 Ported specializations: pluck, bow, hammer and any mix of them per string
 (``bow`` / ``hammer`` dicts with per-string masks), the surface-integral
-and the interpolated pickup readout, poison-only exits
-(``gmres_rescue=False``) and the adaptive sweep schedule
-(``coupling_fixed=0``).  MMS forcing, the in-kernel GMRES rescue and the
-fixed sweep schedule raise ``NotImplementedError`` on both devices and name
-the ROADMAP Queue 2 item that ports them.
+and the interpolated pickup readout, the adaptive sweep schedule
+(``coupling_fixed=0``), and for untrusted sweep exits either poison-only
+(``gmres_rescue=False``, the first pass) or the in-kernel GMRES rescue
+(``gmres_rescue=True``: GMRES(16) on the step's z fixed point, one pass, or
+two with an excitation).  :func:`string_chunked_rerun` re-runs chosen rows
+of a batch in place, as the rescue ladder re-runs a first pass's NaN
+strings.  MMS forcing and the fixed sweep schedule raise
+``NotImplementedError`` on both devices and name the ROADMAP Queue 2 item
+that ports them.
 
 Semantics follow the JAX kernel line by line with one deliberate change:
-each string leaves its Gauss-Seidel loop, and the hammer's inner fixed
-point, on its own (convergence, hopeless back-off or NaN), where the TPU
-kernel iterates the whole batch block until every string is done.  A
-string's result therefore never depends on the other strings in its batch.
+each string leaves its Gauss-Seidel loop, the hammer's inner fixed point
+and the rescue's Arnoldi loop on its own (convergence, hopeless back-off
+or NaN), where the TPU kernel iterates the whole batch block until every
+string is done.  A string's result therefore never depends on the other
+strings in its batch.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from .tridiag import pcr_normalized
 OMEGA_FLOOR = 0.0625  # under-relaxation floor of the adaptive sweeps
 M_HD_CLAMP = -0.01  # hammer displacement clamp (pallas_step.py:46)
 HAMMER_MAX_ITER = 40  # inner hammer fixed-point cap (csrc/string_step.cu::kHammerMaxIter)
+GMRES_M = 16  # the rescue's Krylov dimension (csrc/string_step.cu::kGmresM)
 BOW_KEYS = ("x_b", "v_b", "F_b", "wid", "phi_0", "phi_1", "mask")
 HAMMER_KEYS = ("x_H", "w_H", "M_r", "alpha", "mask")
 
@@ -67,15 +73,18 @@ class KernelConsts(NamedTuple):
     has_bow: bool
     has_hammer: bool
     relative_error: float  # hammer tolerance h_t ** relative_error
+    gmres_rescue: bool  # untrusted exits solved again by GMRES, not poisoned
 
     @property
     def name(self):
         """Specialization name: pluck, bow, hammer or mix, ``-pickup`` with
-        the interpolated pickup readout."""
+        the interpolated pickup readout, ``-gmres`` with the rescue."""
         exc = {(False, False): "pluck", (True, False): "bow",
                (False, True): "hammer", (True, True): "mix"}
-        base = exc[(self.has_bow, self.has_hammer)]
-        return base if self.surface_integral else f"{base}-pickup"
+        name = exc[(self.has_bow, self.has_hammer)]
+        if not self.surface_integral:
+            name += "-pickup"
+        return name + "-gmres" if self.gmres_rescue else name
 
 
 class _LaunchArgs(ctypes.Structure):
@@ -86,7 +95,7 @@ class _LaunchArgs(ctypes.Structure):
         [(n, ctypes.c_int) for n in (
             "struct_size", "B", "T", "M_t", "M_l", "W", "M_t_sem",
             "coupling_iters", "has_bow", "has_hammer", "surface_integral",
-            "B_rows", "ld_t", "ld_l")]
+            "gmres", "B_rows", "ld_t", "ld_l")]
         + [(n, ctypes.c_double) for n in (
             "k", "theta", "lambda_c", "relative_error")]
         + [(n, ctypes.c_void_p) for n in (
@@ -116,9 +125,6 @@ def _consts(*, k, theta_t, lambda_c, M_t, M_l, coupling_iters, surface_integral,
     missing = []
     if manufactured:
         missing.append("MMS forcing (ROADMAP Queue 2 item 7)")
-    if gmres_rescue:
-        missing.append("in-kernel GMRES rescue, gmres_rescue=True "
-                       "(ROADMAP Queue 2 item 4)")
     if coupling_fixed > 0:
         missing.append("fixed sweep schedule, coupling_fixed>0 "
                        "(ROADMAP Queue 2 item 3)")
@@ -138,6 +144,7 @@ def _consts(*, k, theta_t, lambda_c, M_t, M_l, coupling_iters, surface_integral,
         surface_integral=bool(surface_integral),
         has_bow=bow is not None, has_hammer=hammer is not None,
         relative_error=float(relative_error),
+        gmres_rescue=bool(gmres_rescue),
     )
 
 
@@ -194,7 +201,9 @@ def string_chunked(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
     ``chunk``, ``batch_block`` and ``interpret`` are the TPU kernel's
     tiling and have no effect here: the CUDA kernel loops over all T steps
     inside one block per string.  ``mms_centered`` matters only to the
-    unported MMS specialization.
+    unported MMS specialization.  ``gmres_m`` is accepted for the JAX
+    signature's sake; the rescue's Krylov dimension is ``GMRES_M``, as in
+    every call the JAX package makes.
     """
     c = _consts(
         k=k, theta_t=theta_t, lambda_c=lambda_c, M_t=M_t, M_l=M_l,
@@ -235,8 +244,9 @@ def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
     Same arguments, results and specialization limits.  Batched tensor ops
     in the inputs' dtype (float32 or float64), one Python iteration per
     step and per sweep.  ``aux["sweeps"]`` (T, B) int32 also counts each
-    string's Gauss-Seidel sweeps per step, the work the kernel does on the
-    same data.
+    string's Gauss-Seidel sweeps per step, and with ``gmres_rescue``
+    ``aux["gmres_iters"]`` (T, B) its Arnoldi iterations, the work the
+    kernel does on the same data.
     """
     c = _consts(
         k=k, theta_t=theta_t, lambda_c=lambda_c, M_t=M_t, M_l=M_l,
@@ -355,6 +365,54 @@ def string_chunked_bucketed_reference(f0, kappa, alpha, pos, t60, u1, u2, z1,
                                z1, z2, kw.get("bow"), kw.get("hammer"))
 
 
+def string_chunked_rerun(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *, rows,
+                         out, M_t, M_l, host_bounds=None, **kw):
+    """Re-run the strings ``rows`` of a batch, writing their results in
+    place into ``out``: the ``(uout, zout, aux)`` of an earlier
+    :func:`string_chunked_bucketed` call on the same inputs (the rescue
+    ladder re-runs a first pass's NaN rows with ``gmres_rescue=True``).
+
+    Each string runs at its width group's width in the whole batch's
+    :func:`bucket_groups`, one launch per group that holds a row of
+    ``rows``, so its result equals a whole-batch call with the same
+    keywords bit for bit, and the other rows keep ``out``'s values.  With
+    ``gmres_rescue``, ``aux["gmres_iters"]`` is added on the CPU.  Returns
+    ``out``.
+    """
+    c, groups = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw)
+    args = (f0, kappa, alpha, pos, t60, u1, u2, z1, z2)
+    if not groups:
+        return out
+    if f0.is_cuda:
+        return _launch_cuda(c, *args, kw.get("bow"), kw.get("hammer"),
+                            groups=groups, out=out)
+    if f0.device.type == "cpu":
+        return _bucketed_reference(c, groups, *args, kw.get("bow"), kw.get("hammer"),
+                                   out=out)
+    raise ValueError(f"string_chunked_rerun: unsupported device {f0.device}")
+
+
+def string_chunked_rerun_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
+                                   *, rows, out, M_t, M_l, host_bounds=None, **kw):
+    """Plain PyTorch version of :func:`string_chunked_rerun` on any device:
+    :func:`_reference` per group that holds a row of ``rows``, at the
+    group's width, written in place into ``out``."""
+    c, groups = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw)
+    if not groups:
+        return out
+    return _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2, z1,
+                               z2, kw.get("bow"), kw.get("hammer"), out=out)
+
+
+def _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw):
+    """The constants and the width groups of a re-run: the whole batch's
+    groups, each cut to its rows in ``rows``, the empty ones dropped."""
+    c, groups = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    rows = np.asarray(rows, np.int64)
+    groups = [(w, np.intersect1d(g, rows)) for w, g in groups]
+    return c, [(w, g) for w, g in groups if len(g)]
+
+
 def _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw):
     """The validated constants and the width groups of a bucketed call."""
     c = _consts(M_t=M_t, M_l=M_l, M_t_sem=None, **_kernel_kw(kw))
@@ -386,18 +444,27 @@ def _kernel_kw(kw):
 
 @torch.inference_mode()
 def _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
-                        bow, hammer):
+                        bow, hammer, out=None):
+    """:func:`_reference` per group, scattered into the batch's arrays:
+    new ones, or those of ``out`` (``(uout, zout, aux)``) in place."""
     B, T = f0.shape
     dt, dev = f0.dtype, f0.device
     exc = _excitation(f0, bow, hammer)
     full = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
-    uout, zout = full(B, T), full(B, T)
-    carry = [full(B, c.M_t), full(B, c.M_t), full(B, c.M_l), full(B, c.M_l)]
-    aux = {"sweeps": torch.zeros((T, B), dtype=torch.int32, device=dev)}
-    if exc:
-        aux.update({key: full(B, T) for key in ("v_r", "F_H", "u_H")})
-    if c.collect_state:
-        aux["state_u"], aux["state_z"] = full(T, B, c.M_t), full(T, B, c.M_l)
+    counts = lambda: torch.zeros((T, B), dtype=torch.int32, device=dev)
+    if out is None:
+        uout, zout = full(B, T), full(B, T)
+        carry = [full(B, c.M_t), full(B, c.M_t), full(B, c.M_l), full(B, c.M_l)]
+        aux = {"sweeps": counts()}
+        if exc:
+            aux.update({key: full(B, T) for key in ("v_r", "F_H", "u_H")})
+        if c.collect_state:
+            aux["state_u"], aux["state_z"] = full(T, B, c.M_t), full(T, B, c.M_l)
+    else:
+        uout, zout, aux = out
+        carry = list(aux["carry"])
+    if c.gmres_rescue and "gmres_iters" not in aux:
+        aux["gmres_iters"] = counts()
     for W_g, rows in groups:
         idx = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
         M_t_g, M_l_g = min(c.M_t, W_g), min(c.M_l, W_g)
@@ -407,7 +474,9 @@ def _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
             u1[idx, :M_t_g], u2[idx, :M_t_g], z1[idx, :M_l_g], z2[idx, :M_l_g],
             {key: v[idx] for key, v in exc.items()})
         uout[idx], zout[idx] = uo, zo
-        aux["sweeps"][:, idx] = aux_g["sweeps"]
+        for key in ("sweeps", "gmres_iters"):
+            if key in aux:
+                aux[key][:, idx] = aux_g[key]
         for full_c, part in zip(carry, aux_g["carry"]):
             full_c[idx, : part.shape[1]] = part
         for key in ("v_r", "F_H", "u_H"):
@@ -454,6 +523,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
     uout = torch.empty((B, T), dtype=dt, device=dev)
     zout = torch.empty((B, T), dtype=dt, device=dev)
     sweeps = torch.zeros((T, B), dtype=torch.int32, device=dev)
+    gmres_iters = torch.zeros((T, B), dtype=torch.int32, device=dev)
     if c.collect_state:
         state_u = torch.empty((T, B, c.M_t), dtype=dt, device=dev)
         state_z = torch.empty((T, B, c.M_l), dtype=dt, device=dev)
@@ -632,6 +702,38 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
                 rhs = rhs + hmask * torch.nan_to_num(G_H)
             return rhs * live_t, v_rel, F_H, u_H
 
+        def lin_sweep_z(z_c, rhs_u_s, rhs_z_s):
+            """One Gauss-Seidel sweep from ``z_c`` (pallas_step.py:617-622)."""
+            u_g = pcr_normalized(sub_t, diag_t, sup_t,
+                                 -rhs_u_s - K_tl_from(interp(z_c, lt)), levels)
+            iu = interp(lam * st.dxb(u_g, h_t), tl)
+            return u_g, pcr_normalized(sub_l, diag_l, sup_l,
+                                       -rhs_z_s - K_lt_from(iu), levels)
+
+        def rescue(live):
+            """GMRES(m) on the z fixed point (I - G) z = c, G one RHS-free
+            sweep, for the strings ``live`` (pallas_step.py:732-758): one
+            pass, or two with an excitation, its RHS linearized at the first
+            pass's u.  Returns u (NaN where the Krylov residual stays above
+            1e-3), z, the probe values and each string's Arnoldi count."""
+            zmat = torch.zeros_like(z1)
+            u_lin = u1
+            iters = torch.zeros(B, dtype=torch.int32, device=dev)
+            for p in range(2 if has_exc else 1):
+                if has_exc:
+                    rhs_p, *probes = exc_rhs(u_lin, p == 0)
+                else:
+                    rhs_p, probes = rhs_u0 * live_t, (zero, zero, zero)
+                _, cvec = lin_sweep_z(zmat, rhs_p, rhs_z)
+                z_sol, relres, n_it = _gmres_fp(
+                    lambda v: v - lin_sweep_z(v, zmat, zmat)[1], cvec, live,
+                    GMRES_M)
+                iters += n_it
+                u_lin = pcr_normalized(sub_t, diag_t, sup_t,
+                                       -rhs_p - K_tl_from(interp(z_sol, lt)), levels)
+            u_fix = torch.where(relres <= 1e-3, u_lin, torch.full_like(u_lin, math.nan))
+            return u_fix, z_sol, probes, iters
+
         # ---- adaptive damped block Gauss-Seidel (pallas_step.py:505-578),
         # each string frozen once it has exited
         u_c, z_c = u1, z1
@@ -677,12 +779,26 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
             if not bool(active.any()):
                 break
 
-        # ---- poison untrusted exits, Dirichlet rows (pallas_step.py:593-609,
-        # 765-766) -----------------------------------------------------------
+        # ---- untrusted exits (pallas_step.py:593-609): hopeless, non-finite
+        # or above tolerance at the sweep cap; poisoned, or with the GMRES
+        # rescue solved again exactly (:732-764)
         bad = hopeless | ~(prev < math.inf) | (prev > inner_eps * scale_u)
-        u_n = torch.where(bad, torch.full_like(u_c, math.nan), u_c)
+        if not c.gmres_rescue:
+            u_n = torch.where(bad, torch.full_like(u_c, math.nan), u_c)
+            z_n = z_c
+        elif bool(bad.any()):
+            u_r, z_r, probes_r, iters = rescue(bad[:, 0])
+            gmres_iters[t] = iters
+            u_n = torch.where(bad, u_r, u_c)
+            z_n = torch.where(bad, z_r, z_c)
+            if has_exc:
+                v_rel, F_H, u_H = (torch.where(bad, r, g) for r, g in
+                                   zip(probes_r, (v_rel, F_H, u_H)))
+        else:
+            u_n, z_n = u_c, z_c
+        # Dirichlet rows (:765-766)
         u_n = u_n * live_t * (it != 0).to(dt) * (itf != N_t).to(dt)
-        z_n = z_c * live_l * (it != 0).to(dt) * (itf != N_l).to(dt)
+        z_n = z_n * live_l * (it != 0).to(dt) * (itf != N_l).to(dt)
 
         # ---- readout (pallas_step.py:768-787) -------------------------------
         if c.surface_integral:
@@ -720,12 +836,92 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
     aux = {"carry": (u1s[:, : c.M_t], u2s[:, : c.M_t],
                      z1s[:, : c.M_l], z2s[:, : c.M_l]),
            "sweeps": sweeps}
+    if c.gmres_rescue:
+        aux["gmres_iters"] = gmres_iters
     if has_exc:
         aux.update(traces)
     if c.collect_state:
         aux["state_u"] = state_u
         aux["state_z"] = state_z
     return uout, zout, aux
+
+
+
+# the rescue's happy-breakdown guard on a divisor: sqrt(FLT_MIN), as
+# pallas_step.py:611 takes it in either precision
+_TINY = float(np.finfo(np.float32).tiny) ** 0.5
+
+
+def _sdiv(a, b):
+    """``a / b``, 0 where ``|b|`` is not above ``_TINY`` (happy breakdown)."""
+    return torch.where(torch.abs(b) > _TINY,
+                       a / torch.where(b == 0.0, torch.ones_like(b), b),
+                       torch.zeros_like(a))
+
+
+def _gmres_fp(op, cvec, live, m):
+    """GMRES(m) on ``op(z) = c`` from z = 0 for the strings ``live``
+    (pallas_step.py:624-730): modified Gram-Schmidt, Givens rotations,
+    back-substitution.  Each string stops on its own once its running
+    residual is at most 1e-6 of ``|c|`` (a NaN one stops too), where the
+    TPU kernel runs its batch block until every string has.  Returns ``(z,
+    relres, iterations)``; ``relres`` and ``z`` are ``(B, 1)`` / ``(B, M)``,
+    ``iterations`` the ``(B,)`` Arnoldi count."""
+    B = cvec.shape[0]
+    col = lambda x: x[:, None]
+    beta = torch.sqrt(torch.sum(cvec * cvec, dim=1))
+    V = [cvec * col(_sdiv(torch.ones_like(beta), beta))]
+    g = [beta] + [torch.zeros_like(beta)] * m
+    cs, sn = [], []
+    R = [[None] * m for _ in range(m)]  # R[i][j]: row j of column i
+    res = beta
+    active = live & (res > 1e-6 * beta)
+    it_n = torch.zeros(B, dtype=torch.int32, device=cvec.device)
+    for i in range(m):
+        if not bool(active.any()):
+            break
+        w = op(V[i])
+        hcol = []
+        for j in range(i + 1):  # modified Gram-Schmidt, in order
+            h = torch.sum(w * V[j], dim=1)
+            w = w - col(h) * V[j]
+            hcol.append(h)
+        hcol.append(None)
+        hlast = torch.sqrt(torch.sum(w * w, dim=1))
+        V.append(w * col(_sdiv(torch.ones_like(hlast), hlast)))
+        for j in range(i):
+            hj, hj1 = hcol[j], hcol[j + 1]
+            hcol[j] = cs[j] * hj + sn[j] * hj1
+            hcol[j + 1] = -sn[j] * hj + cs[j] * hj1
+        hi = hcol[i]
+        den = torch.sqrt(hi * hi + hlast * hlast)
+        ci, si = _sdiv(hi, den), _sdiv(hlast, den)
+        hcol[i] = den
+        # strings that have stopped keep their rotations, R and g
+        keep = lambda new, old: torch.where(active, new, old)
+        zero = torch.zeros_like(beta)
+        cs.append(keep(ci, zero))
+        sn.append(keep(si, zero))
+        for j in range(i + 1):
+            R[i][j] = keep(hcol[j], zero)
+        gi = g[i]
+        g[i] = keep(ci * gi, gi)
+        g[i + 1] = keep(-si * gi, g[i + 1])
+        res = keep(torch.abs(g[i + 1]), res)
+        it_n = it_n + active.to(torch.int32)
+        active = active & (res > 1e-6 * beta)
+    # back substitution on R y = g, then z = V y (pallas_step.py:712-729)
+    n = len(cs)
+    y = [torch.zeros_like(beta) for _ in range(n)]
+    for i2 in range(n - 1, -1, -1):
+        s = g[i2]
+        for j in range(i2 + 1, n):
+            s = s - torch.where(j < it_n, R[j][i2] * y[j], torch.zeros_like(s))
+        y[i2] = torch.where(i2 < it_n, _sdiv(s, R[i2][i2]), y[i2])
+    z = torch.zeros_like(cvec)
+    for i2 in range(n):
+        z = torch.where(col(i2 < it_n), z + col(y[i2]) * V[i2], z)
+    return z, col(_sdiv(res, beta)), it_n
 
 
 def _hammer_fixed_point(uH1, uH2, eta0, eta_1, eta_2, f_pow, eps_u, hmask,
@@ -754,11 +950,12 @@ def _hammer_fixed_point(uH1, uH2, eta0, eta_1, eta_2, f_pow, eps_u, hmask,
 
 
 def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
-                 bow, hammer, groups=None):
-    """Check the inputs, allocate the outputs and launch ``string_step``:
-    once over the batch, or once per width group ``(W_g, rows)`` of
-    ``groups``, each group on its own stream, joined to the current stream
-    before the outputs are returned."""
+                 bow, hammer, groups=None, out=None):
+    """Check the inputs, allocate the outputs (or take those of ``out``, a
+    whole-batch ``(uout, zout, aux)``, and write in place) and launch
+    ``string_step``: once over the batch, or once per width group ``(W_g,
+    rows)`` of ``groups``, each group on its own stream, joined to the
+    current stream before the outputs are returned."""
     from . import build
 
     B, T = f0.shape
@@ -800,18 +997,21 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
     launch.argtypes = [ctypes.POINTER(_LaunchArgs), ctypes.c_void_p]
     launch.restype = ctypes.c_int
     opts = dict(dtype=torch.float32, device=f0.device)
-    # lanes past a narrower group's width are never written and read 0
-    alloc = torch.zeros if any(W_g < W for W_g, _ in groups) else torch.empty
-    out = {"uout": torch.empty((B, T), **opts), "zout": torch.empty((B, T), **opts)}
-    for name, M in (("u1_out", c.M_t), ("u2_out", c.M_t), ("z1_out", c.M_l),
-                    ("z2_out", c.M_l)):
-        out[name] = alloc((B, M), **opts)
-    if c.has_bow or c.has_hammer:
-        for name in ("v_r", "F_H", "u_H"):
-            out[name] = torch.empty((B, T), **opts)
-    if c.collect_state:
-        out["state_u"] = alloc((T, B, c.M_t), **opts)
-        out["state_z"] = alloc((T, B, c.M_l), **opts)
+    if out is None:
+        # lanes past a narrower group's width are never written and read 0
+        alloc = torch.zeros if any(W_g < W for W_g, _ in groups) else torch.empty
+        out = {"uout": torch.empty((B, T), **opts), "zout": torch.empty((B, T), **opts)}
+        for name, M in (("u1_out", c.M_t), ("u2_out", c.M_t), ("z1_out", c.M_l),
+                        ("z2_out", c.M_l)):
+            out[name] = alloc((B, M), **opts)
+        if c.has_bow or c.has_hammer:
+            for name in ("v_r", "F_H", "u_H"):
+                out[name] = torch.empty((B, T), **opts)
+        if c.collect_state:
+            out["state_u"] = alloc((T, B, c.M_t), **opts)
+            out["state_z"] = alloc((T, B, c.M_l), **opts)
+    else:
+        out = _outputs_in_place(c, B, T, f0.device, out)
     exc = _excitation(f0, bow, hammer)  # views, masks as 0/1 floats
     ptrs = dict(f0=f0, kappa=kappa, alpha=alpha, pos=pos,
                 t60=t60.reshape(B, 4),  # (freq1, time1, freq2, time2)
@@ -820,6 +1020,7 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
         struct_size=ctypes.sizeof(_LaunchArgs), T=T, M_t_sem=c.M_t_sem,
         coupling_iters=c.coupling_iters, has_bow=c.has_bow,
         has_hammer=c.has_hammer, surface_integral=c.surface_integral,
+        gmres=c.gmres_rescue,
         B_rows=B, ld_t=c.M_t, ld_l=c.M_l, k=c.k, theta=c.theta_t,
         lambda_c=c.lambda_c, relative_error=c.relative_error,
         **{name: x.data_ptr() for name, x in ptrs.items()},
@@ -857,6 +1058,28 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
     aux.update({n: out[n] for n in ("v_r", "F_H", "u_H", "state_u", "state_z")
                 if n in out})
     return out["uout"], out["zout"], aux
+
+
+def _outputs_in_place(c, B, T, device, out):
+    """The output tensors of a whole-batch ``(uout, zout, aux)``, by the
+    kernel's names, checked for the shapes this launch writes."""
+    uout, zout, aux = out
+    named = dict(zip(("u1_out", "u2_out", "z1_out", "z2_out"), aux["carry"]))
+    named.update(uout=uout, zout=zout)
+    want = {"uout": (B, T), "zout": (B, T), "u1_out": (B, c.M_t),
+            "u2_out": (B, c.M_t), "z1_out": (B, c.M_l), "z2_out": (B, c.M_l)}
+    if c.has_bow or c.has_hammer:
+        want.update(v_r=(B, T), F_H=(B, T), u_H=(B, T))
+    if c.collect_state:
+        want.update(state_u=(T, B, c.M_t), state_z=(T, B, c.M_l))
+    for name, shape in want.items():
+        x = named.get(name, aux.get(name))
+        if (x is None or tuple(x.shape) != shape or x.dtype != torch.float32
+                or x.device != device or not x.is_contiguous()):
+            raise ValueError(f"out: {name} must be a contiguous float32 {shape} "
+                             f"tensor on {device}")
+        named[name] = x
+    return named
 
 
 _STREAMS = {}  # device index -> side streams of the bucketed launch

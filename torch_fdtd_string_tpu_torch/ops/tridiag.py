@@ -33,19 +33,20 @@ def tridiag_solve(sub, diag, sup, rhs):
     """
     M = rhs.shape[-1]
     n_steps = max(1, math.ceil(math.log2(max(M, 2))))
+    pad = torch.nn.functional.pad
     a, b, c, d = sub, diag, sup, rhs
     s = 1
     for _ in range(n_steps):
-        # out-of-range neighbours behave as identity rows (b=1, a=c=d=0)
-        b_m = _shift(b, s, fill=1.0)
-        b_p = _shift(b, -s, fill=1.0)
-        alpha = -a / b_m
-        beta = -c / b_p
-        a2 = alpha * _shift(a, s)
-        c2 = beta * _shift(c, -s)
-        b2 = b + alpha * _shift(c, s) + beta * _shift(a, -s)
-        d2 = d + alpha * _shift(d, s) + beta * _shift(d, -s)
-        a, b, c, d = a2, b2, c2, d2
+        # out-of-range neighbours behave as identity rows (b=1, a=c=d=0):
+        # one padded copy of (a, c, d) and one of b give both neighbours
+        P = pad(torch.stack((a, c, d)), (s, s))
+        Pb = pad(b, (s, s), value=1.0)
+        a_m, c_m, d_m = P[..., :M].unbind(0)
+        a_p, c_p, d_p = P[..., 2 * s:].unbind(0)
+        alpha = -a / Pb[..., :M]
+        beta = -c / Pb[..., 2 * s:]
+        a, b, c, d = (alpha * a_m, b + alpha * c_m + beta * a_p,
+                      beta * c_p, d + alpha * d_m + beta * d_p)
         s *= 2
     return d / b
 

@@ -21,20 +21,31 @@ the width-bucketed string kernel over all steps
   every float64 run) is post-processed on the host from each item's
   native-width state.
 
-Per run: ``skip_stats.json`` and the timing log ``gpu_time.txt`` (CUDA) or
-``cpu_time.txt`` (CPU); a fused run's ``skip_stats.json`` also carries the
-writer phases' times and the device-to-host bytes.
+With ``task.rescue_nan`` (the default; ``experiment=nsynth-like`` turns
+it off) a single-precision run takes the NaN rescue ladder: the strings
+the first pass poisons run again through the kernel's GMRES instance,
+only those rows, in place, on the card (stage 1); those still NaN run
+again in float64 through the scan engine on the host (stage 2,
+``rescue_nan_elements``) and are spliced in, and the fused path builds
+their items on the host from the rescued state.
+
+Per run: ``skip_stats.json`` (per batch the first-pass NaNs, the strings
+each stage saved, the NaN and silence skips) and the timing log
+``gpu_time.txt`` (CUDA) or ``cpu_time.txt`` (CPU); a fused run's
+``skip_stats.json`` also carries the writer phases' times and the
+device-to-host bytes.
 
 The device is chosen explicitly: the CPU, where the kernel's plain PyTorch
 version runs, for ``proc.cpu=true`` or ``task.precision=double``; CUDA
 otherwise, and a host without a usable card raises.  Not ported yet, and
-refused with ``NotImplementedError``: MMS forcing, preset loading, the NaN
-rescue ladder, plots and writing during the process (see ROADMAP.md).
+refused with ``NotImplementedError``: MMS forcing, preset loading, plots
+and writing during the process (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import threading
@@ -44,9 +55,10 @@ import numpy as np
 import torch
 
 from ..core import params as prm
-from ..core.engine import SimConsts, StringParams
+from ..core.engine import (BowParams, Carry, HammerParams, SimConsts,
+                           StringParams, simulate_chunk)
 from ..ops import fdm
-from ..ops.string_kernel import string_chunked_bucketed
+from ..ops.string_kernel import string_chunked_bucketed, string_chunked_rerun
 from ..utils import audio
 from ..utils import misc as ms
 from ..utils import wav as wavio
@@ -66,6 +78,17 @@ def select_device(cpu=False, precision="single"):
 
 def _not_ported(what, item):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
+
+
+def kernel_gmres_rerun_enabled(task, args):
+    """Whether a run takes rescue-ladder stage 1, the re-run of the first
+    pass's NaN strings through the GMRES instance of the string kernel: a
+    single-precision run on the card with ``task.rescue_nan`` on (the
+    default; ``experiment=nsynth-like`` turns it off, and then NaN strings
+    are skipped, as the reference skips them)."""
+    return (not args.proc.cpu
+            and task.get("precision", "single") != "double"
+            and bool(task.get("rescue_nan", True)))
 
 
 def kernel_inputs(state, consts: SimConsts, Nt, device, bow=None, hammer=None,
@@ -217,10 +240,13 @@ class _DeviceState:
         self._su = su if post is None else None  # free the field once consumed
         self._head = (u2_init, u1_init)
         self._stats = stats
+        self.rescued = {}  # b -> (Nt, M) host state of an f64-rescued string
 
     def fetch_element(self, b, w):
         """String ``b``'s rows at its live width ``w``, ``(Nt, w)`` float32
         (the two initial rows first)."""
+        if b in self.rescued:
+            return np.asarray(self.rescued[b][:, :w], np.float32)
         body = self._su[:, b, :w].to(device="cpu", dtype=torch.float32).numpy()
         self._stats.count(body.nbytes)
         head = np.stack([self._head[0][b, :w], self._head[1][b, :w]])
@@ -264,7 +290,7 @@ POSTPROC_G = 32
 
 
 def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
-            device, sr=48000, postproc_keep=None, stats=None):
+            device, sr=48000, postproc_keep=None, stats=None, kernel_gmres=None):
     """Run one batch through the width-bucketed string kernel (steps
     2..Nt-1).
 
@@ -277,6 +303,13 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
     ``post`` carries the batch's :func:`..ops.postproc.postprocess_batch`
     outputs when its width spread is below ``G`` (float32 runs), and
     ``state_z`` is None.  Pulls are counted in ``stats``.
+
+    ``kernel_gmres``, a dict, turns on rescue-ladder stage 1: the strings
+    the first pass leaves NaN run again through the GMRES instance of the
+    kernel, written in place into the batch's outputs before any of them is
+    read (``string_chunked_rerun``: only those rows, at their widths in the
+    batch's grouping, so the result equals a whole-batch re-run); the first
+    pass's ``(B,)`` NaN flags go to ``kernel_gmres["nan_first_pass"]``.
     """
     stats = stats or RunStats()
     args, kwargs = kernel_inputs(state, consts, Nt, device, bow, hammer,
@@ -285,6 +318,17 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
     host_bounds = (state.f0[:, 2:Nt], state.kappa, state.alpha)
     uout_d, zout_d, aux = string_chunked_bucketed(*args, host_bounds=host_bounds,
                                                   **kwargs)
+    if kernel_gmres is not None:
+        nan_first = torch.isnan(uout_d.sum(-1)).cpu().numpy()
+        stats.count(nan_first.nbytes)
+        kernel_gmres["nan_first_pass"] = nan_first
+        rows = np.nonzero(nan_first)[0]
+        if len(rows):
+            print(f"[simulate] kernel-GMRES re-run for diverged element(s) "
+                  f"{rows.tolist()}", flush=True)
+            string_chunked_rerun(*args, rows=rows, out=(uout_d, zout_d, aux),
+                                 host_bounds=host_bounds,
+                                 **dict(kwargs, gmres_rescue=True))
     np_dt = state.u0.dtype
     B, T = uout_d.shape
 
@@ -348,6 +392,106 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
             v_r, F_H, u_H, sig0, sig1)
 
 
+def process_engine(state, bow, hammer, bow_mask, hammer_mask,
+                   consts: SimConsts, Nt, chunk_size, device, collect_state=True):
+    """One batch through the scan engine (``core/engine.py``), the JAX
+    ``process`` engine branch: steps 2..Nt-1 in chunks of ``chunk_size - 2``
+    steps (the reference's 2-sample overlap, simulate.py:57-107, which the
+    carry implements), in the draws' dtype, on ``device``.  Returns numpy
+    ``(uout, zout, state_u, state_z, v_r, F_H, u_H, sig0, sig1)``, the state
+    fields ``(B, Nt, M)`` with the two initial rows first (``None`` without
+    ``collect_state``)."""
+    dtype = torch.float64 if state.u0.dtype == np.float64 else torch.float32
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    to = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
+    B = state.u0.shape[0]
+    M_l = consts.M_l
+    u1_init, u2_init = fdm.initialize_state_rows(state.u0, state.v0, consts.k)
+    carry = Carry(u1=to(u1_init), u2=to(u2_init),
+                  z1=torch.zeros((B, M_l), dtype=dtype, device=device),
+                  z2=torch.zeros((B, M_l), dtype=dtype, device=device),
+                  uH1=to(hammer.u_H[:, 1]), uH2=to(hammer.u_H[:, 0]))
+    sp = StringParams(kappa=to(state.kappa), alpha=to(state.alpha), p_a=to(state.p_a),
+                      f0=to(state.f0), pos=to(state.pos), T60=to(state.T60))
+    bp = BowParams(x_b=to(bow.x_b), v_b=to(bow.v_b), F_b=to(bow.F_b),
+                   phi_0=to(bow.phi_0), phi_1=to(bow.phi_1), wid=to(bow.wid))
+    hp = HammerParams(x_H=to(hammer.x_H), w_H=to(hammer.w_H), M_r=to(hammer.M_r),
+                      alpha=to(hammer.alpha))
+    bmask = torch.as_tensor(np.asarray(bow_mask, bool), device=device)
+    hmask = torch.as_tensor(np.asarray(hammer_mask, bool), device=device)
+    consts = consts._replace(collect_state=bool(collect_state))
+    outs = []
+    for cs in range(2, Nt, max(chunk_size - 2, 1)):
+        ce = min(cs + chunk_size - 2, Nt)
+        carry, out = simulate_chunk(carry, range(cs, ce), sp, bp, hp, bmask, hmask,
+                                    consts)
+        outs.append({key: v.cpu().numpy() for key, v in out.items()})
+    cat = lambda key: np.concatenate([o[key] for o in outs], axis=0).T  # (B, T)
+    sig0, sig1 = outs[-1]["sig0"][-1], outs[-1]["sig1"][-1]
+    state_u = state_z = None
+    if collect_state:
+        state_u = np.concatenate(
+            [np.asarray(u2_init, np_dt)[:, None], np.asarray(u1_init, np_dt)[:, None]]
+            + [o["u"].transpose(1, 0, 2) for o in outs], axis=1)
+        state_z = np.concatenate(
+            [np.zeros((B, 2, M_l), np_dt)] + [o["z"].transpose(1, 0, 2) for o in outs],
+            axis=1)
+    # the reference divides u_H by k on return (simulator.cpp:57)
+    return (cat("uout"), cat("zout"), state_u, state_z, cat("v_r"), cat("F_H"),
+            cat("u_H") / consts.k, sig0, sig1)
+
+
+def _slice_batch(obj, idx, B, cast_f64=False):
+    """The rows ``idx`` of a params dataclass's batch-major arrays."""
+    kw = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, np.ndarray) and v.ndim >= 1 and v.shape[0] == B:
+            v = v[idx]
+            if cast_f64 and np.issubdtype(v.dtype, np.floating):
+                v = v.astype(np.float64)
+        kw[f.name] = v
+    return dataclasses.replace(obj, **kw)
+
+
+def rescue_inputs(string, bow, hammer, bow_mask, hammer_mask, idx,
+                  consts: SimConsts):
+    """:func:`process_engine`'s batch arguments for the strings ``idx`` of
+    a batch: their draws in float64 and the constants with the GMRES
+    coupled solve, ``(string, bow, hammer, bow_mask, hammer_mask,
+    consts)``."""
+    B = len(bow_mask)
+    bm2, hm2 = np.asarray(bow_mask)[idx], np.asarray(hammer_mask)[idx]
+    consts2 = consts._replace(
+        has_bow=bool(np.any(bm2)), has_hammer=bool(np.any(hm2)),
+        # strongly coupled draws mix large-negative and near-one GS
+        # eigenvalues, where no damping factor converges: the Krylov solve
+        coupling_solver="gmres", coupling_max_iter=64,
+    )
+    return (_slice_batch(string, idx, B, cast_f64=True),
+            _slice_batch(bow, idx, B, cast_f64=True),
+            _slice_batch(hammer, idx, B, cast_f64=True), bm2, hm2, consts2)
+
+
+def rescue_nan_elements(string, bow, hammer, bow_mask, hammer_mask, idx,
+                        consts: SimConsts, Nt, chunk_size, sr):
+    """Rescue-ladder stage 2: the strings ``idx`` simulated again in float64
+    by the scan engine with the GMRES coupled solve, in one batched call
+    (each string has its own Krylov space, so a hopeless NaN string cannot
+    touch its neighbours).  Returns :func:`process_engine`'s numpy arrays
+    for those strings.
+
+    This runs on the host CPU, as the JAX package runs it: it is a stage of
+    the algorithm (strongly coupled draws need the exact joint solve in
+    float64, where the reference's dense solve stays stable), not a fallback
+    from the card.  The first pass and the GMRES re-run run only on the
+    card, and a single-precision run without one still raises.
+    """
+    return process_engine(
+        *rescue_inputs(string, bow, hammer, bow_mask, hammer_mask, idx, consts),
+        Nt, chunk_size, torch.device("cpu"), collect_state=consts.collect_state)
+
+
 def draw_params(model_name, sr, theta_t, length, batch_size, f0_inf,
                 alpha_inf, lambda_c, *, string_kwargs=None, hammer_kwargs=None,
                 bow_kwargs=None, precision="single", randomize_each="batch",
@@ -397,7 +541,7 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
              hammer_kwargs=None, bow_kwargs=None, precision="single",
              relative_order=4, surface_integral=False, randomize_each="batch",
              manufactured=False, rng=None, collect_state=True,
-             postproc_keep=None, stats=None):
+             postproc_keep=None, stats=None, kernel_gmres=None):
     """Draw one batch and simulate it (reference simulate.py:121-217).
 
     Returns ``(results, (string, bow, hammer, [k, theta_t, lambda_c],
@@ -420,7 +564,8 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
     device = select_device(cpu, precision)
     results = process(string, bow, hammer, bow_mask, hammer_mask, consts,
                       int(length * sr), device, sr=sr,
-                      postproc_keep=postproc_keep, stats=stats)
+                      postproc_keep=postproc_keep, stats=stats,
+                      kernel_gmres=kernel_gmres)
     k = 1.0 / sr
     return (results, (string, bow, hammer, [k, theta_t, lambda_c], consts),
             (bow_mask, hammer_mask, pluck_mask), device)
@@ -551,9 +696,6 @@ def run(args, save_dir, model_name, n_samples):
     """
     task = args.task
     sr = task.sr
-    if task.get("rescue_nan", True) and task.precision != "double":
-        _not_ported("the NaN rescue ladder (task.rescue_nan=true)",
-                    "Queue 1 item 4")
     if task.plot or task.plot_state:
         _not_ported("plots (task.plot / task.plot_state)", "Queue 1 item 12")
     if task.write_during_process:
@@ -598,10 +740,14 @@ def run(args, save_dir, model_name, n_samples):
                 "time": time.strftime("%Y-%m-%dT%H:%M:%S"),
             }) + "\n")
     collect_state = bool(task.save or fuse)
+    rescue = bool(task.get("rescue_nan", True)) and task.precision != "double"
+    kernel_gmres_on = kernel_gmres_rerun_enabled(task, args)
+    Nt_run = int(task.length * sr)
+    chunk_r = max(Nt_run if task.chunk_length < 0 else int(task.chunk_length * sr), 3)
 
     def save_item(b, d, excitation, uout, zout, state_u, state_z, v_r, F_H,
                   u_H, string, bow, hammer, Nx_t, Nx_l, sig0, sig1,
-                  bow_mask, hammer_mask, pluck_mask, consts_list, keep):
+                  bow_mask, hammer_mask, pluck_mask, consts_list, keep, rescued):
         if save_wav or task.save:
             os.makedirs(d, exist_ok=True)
         if save_wav:
@@ -653,7 +799,7 @@ def run(args, save_dir, model_name, n_samples):
                     phi_0=bow.phi_0[b], phi_1=bow.phi_1[b], wid_B=bow.wid[b])
         _ham = dict(x_H=hammer.x_H[b], v_H=hammer.v_H[b], u_H=hammer.u_H[b],
                     w_H=hammer.w_H[b], M_r=hammer.M_r[b], alpha=hammer.alpha[b])
-        if state_u.post is not None:
+        if state_u.post is not None and b not in rescued:
             # the device path: the item's kept columns and tracks, pulled
             # once per batch, plus the modal data from the host
             t0 = time.perf_counter()
@@ -697,6 +843,7 @@ def run(args, save_dir, model_name, n_samples):
                                     fuse_Nx, fuse_stride)
 
             st = time.time()
+            ladder = {} if kernel_gmres_on else None
             results, params_out, masks, device = simulate(
                 model_name, sr, theta_t, task.length, task.batch_size,
                 task.f0_inf, task.alpha_inf, task.lambda_c, args.proc.cpu,
@@ -707,7 +854,7 @@ def run(args, save_dir, model_name, n_samples):
                 manufactured=task.manufactured, rng=rng,
                 collect_state=collect_state,
                 postproc_keep=(keep_it, fuse_Nx) if fuse else None,
-                stats=stats, **kw,
+                stats=stats, kernel_gmres=ladder, **kw,
             )
             proc_time = time.time() - st
             time_log.append(proc_time)
@@ -716,33 +863,77 @@ def run(args, save_dir, model_name, n_samples):
                 f.write(f"{dx}\t{proc_time:.2f}\n")
 
             uout, zout, state_u, state_z, v_r, F_H, u_H, sig0, sig1 = results
-            string, bow, hammer, consts_list, _ = params_out
+            string, bow, hammer, consts_list, sim_c = params_out
             bow_mask, hammer_mask, pluck_mask = masks
 
-            if torch.is_tensor(uout):
-                # fused: the (B,) NaN and silence flags cross; the readouts
-                # only when an artifact holds them
-                nan_d = torch.isnan(uout.sum(-1))
+            fused_out = torch.is_tensor(uout)
+            if fused_out:  # the (B,) NaN flags cross
+                state_is_nan = torch.isnan(uout.sum(-1)).cpu().numpy()
+                stats.count(state_is_nan.nbytes)
+            else:
+                state_is_nan = np.isnan(uout.sum(-1))
+            # the rescue ladder: stage 1 (the kernel's GMRES re-run) ran in
+            # process(); every sample that does not reach disk is attributed
+            # to a named cause
+            first = state_is_nan if ladder is None else ladder["nan_first_pass"]
+            batch_stat = {
+                "it": it, "n": int(task.batch_size),
+                "nan_first_pass": int(first.sum()),
+                "rescued_kernel_gmres": int((first & ~state_is_nan).sum()),
+                "rescued_f64": 0,
+            }
+            rescued_set = set()  # spliced strings take the host build
+            if rescue and state_is_nan.any():
+                # stage 2: the strings still NaN again in float64 on the host
+                idx = np.nonzero(state_is_nan)[0]
+                print(f"[simulate] f64-rescuing diverged element(s) {idx.tolist()}",
+                      flush=True)
+                t0 = time.perf_counter()
+                r_uout, r_zout, r_su, r_sz, r_vr, r_FH, r_uH, r_s0, r_s1 = \
+                    rescue_nan_elements(string, bow, hammer, bow_mask, hammer_mask,
+                                        idx, sim_c, Nt_run, chunk_r, sr)
+                batch_stat["rescue_f64_s"] = round(time.perf_counter() - t0, 3)
+                ok = ~np.isnan(r_uout.sum(-1))
+                oki = idx[ok]
+                if len(oki):
+                    if fused_out:
+                        rows = torch.as_tensor(oki, device=uout.device)
+                        with torch.inference_mode():  # the plain version's outputs
+                            uout[rows] = torch.as_tensor(r_uout[ok], dtype=uout.dtype,
+                                                         device=uout.device)
+                            zout[rows] = torch.as_tensor(r_zout[ok], dtype=zout.dtype,
+                                                         device=zout.device)
+                    else:
+                        uout[oki] = r_uout[ok]
+                        zout[oki] = r_zout[ok]
+                    v_r[oki], F_H[oki], u_H[oki] = r_vr[ok], r_FH[ok], r_uH[ok]
+                    sig0[oki], sig1[oki] = r_s0[ok], r_s1[ok]
+                    if r_su is not None:
+                        if isinstance(state_u, _DeviceState):
+                            state_u.rescued.update(
+                                {int(b): r_su[j] for j, b in zip(np.nonzero(ok)[0], oki)})
+                        else:
+                            state_u[oki] = r_su[ok]
+                            state_z[oki] = r_sz[ok]
+                    state_is_nan[oki] = False
+                    rescued_set.update(int(b) for b in oki)
+                    batch_stat["rescued_f64"] = len(oki)
+                    batch_stat["rescue_f64_rows"] = [int(b) for b in oki]
+            if fused_out:
+                # the silence flags cross; the readouts only when an
+                # artifact holds them
+                nan_d = torch.as_tensor(state_is_nan, device=uout.device)
                 uout = uout * ~nan_d[:, None]
                 rms = torch.sqrt(torch.mean(uout.double() ** 2, dim=-1))
                 db = 20 * torch.log10(rms + float(np.finfo(np.float64).eps))
                 readouts = (_HostCopy({"uout": uout, "zout": zout}, stats)
                             if save_wav or task.save else None)
-                state_is_nan = nan_d.cpu().numpy()
                 is_silent = (db <= task.silence_threshold).cpu().numpy()
-                stats.count(state_is_nan.nbytes + is_silent.nbytes)
+                stats.count(is_silent.nbytes)
                 uout, zout = _Readout(readouts, "uout"), _Readout(readouts, "zout")
             else:
-                state_is_nan = np.isnan(uout.sum(-1))
                 uout = uout * ~state_is_nan[:, None]
                 is_silent = audio.dB_RMS(uout) <= task.silence_threshold
-            # every sample that does not reach disk is attributed to a named
-            # cause; the rescue counters stay 0 until the ladder is ported
-            batch_stat = {
-                "it": it, "n": int(task.batch_size),
-                "nan_first_pass": int(state_is_nan.sum()),
-                "rescued_kernel_gmres": 0, "rescued_f64": 0,
-            }
             _, _, Nx_t, _, Nx_l, _ = fdm.get_derived_vars_host(
                 string.f0, string.kappa[:, None], 1.0 / sr, theta_t,
                 task.lambda_c, string.alpha[:, None], dtype=np.float32,
@@ -771,7 +962,7 @@ def run(args, save_dir, model_name, n_samples):
                     save_item, b, f"{save_dir}/{dx}-{b}", excitation, uout,
                     zout, state_u, state_z, v_r, F_H, u_H, string, bow, hammer,
                     Nx_t, Nx_l, sig0, sig1, bow_mask, hammer_mask, pluck_mask,
-                    consts_list, keep_it,
+                    consts_list, keep_it, rescued_set,
                 ))
             if skipped_detail:
                 batch_stat["skipped"] = skipped_detail
