@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab CHECKOUT [CHECKOUT ...]
 
 Phases; any failure exits non-zero:
 
@@ -46,9 +47,25 @@ Phases; any failure exits non-zero:
    f64-rescued item through the host build;
 12. the rescue ladder, classic: ``model.excitation=null``, one batch of 24
    drawn so that the first pass poisons a string early, the same length
-   rule, checked artifact by artifact, the spliced items' fields finite.
+   rule, checked artifact by artifact, the spliced items' fields finite;
+13. the MMS verification run at single precision: ``python -m
+   torch_fdtd_string_tpu_torch.run experiment=linear-string
+   task.precision=single task.plot=false task.plot_state=false`` (one
+   string of 0.2 s through the MMS instance), its artifacts, and its state
+   held to the manufactured solution;
+14. ``experiment=nonlinear-string`` the same way, its artifacts;
+15. ``python -m torch_fdtd_string_tpu_torch.tools.kernel_timing``'s
+   probe at B=16 and B=256: the adaptive and the fixed sweep schedules'
+   walls and deviations;
+16. the time-scaling sweep ``tasks/time_experiment.run_sweep`` at the JAX
+   axes (kernel only: B 4/16/64/256 at 1 s, lengths 0.25/0.5/1.0 s at
+   B=16), every point present, and one engine point (B=4, short) for its
+   ms per step.
 
-Phase 2 also prints ptxas's registers and spills of the GMRES instances.
+Phases 13-16 run after phase 10 and before the ladder phases 11-12, whose
+length follows the time left.
+
+Phase 2 also prints ptxas's registers and spills of every instance.
 Phase 3 adds the GMRES instances (``gmres_rescue=True``) against their
 plain version: (n) draw (a) with ``coupling_iters=1``, so every step goes
 through GMRES, (o) the strong-coupling corner (alpha=23, f0=392) at the
@@ -58,13 +75,33 @@ the ladder launches it, the first pass's NaN rows alone at their bucket
 groups' widths, in place: (q) of phase 11's draw and (r) of phase 12's,
 each against its plain version (the GMRES instances' JSON record), a
 whole-batch GMRES launch (bit for bit) and the first pass (healthy rows
-untouched).
+untouched).  (s) the MMS instance against its plain version and the
+closed form: the JAX twin's string (f0 220, kappa 0.03, p_a 0.01,
+relative_error 8, centered forcing) at 48 kHz over 1,024 steps and at 96
+kHz over 2,048, second-order convergence between them, a B=32 batch of
+mixed f0 and p_a through the bucketed launch, and the MMS GMRES instance;
+then the shapes phases 13 and 14 launch: linear-string's and
+nonlinear-string's own draws at single precision (their allocation,
+relative_error 8, the uncentered forcing) through the bucketed launch
+against its plain version, and linear-string's string through the MMS
+GMRES instance.  (t) the fixed sweep schedule (1 and 2 sweeps) on draws (a)
+and (b) against its plain version and, two sweeps, against the adaptive
+kernel; (u) ``pluck_chunked`` against ``string_chunked`` bit for bit (one
+``pluck-gmres`` launch) and against its plain version on draw (a).
 
-Phases 4-12 each set the launch counts to 0 just before the run and read
+Phases 4-16 each set the launch counts to 0 just before the run and read
 them just after.  The line before the last is the kernels' JSON record, one
-entry per specialization, one for the bucketed launch and one per GMRES
-instance phases 11-12 launched; the last line is ``{"ok": true, "device":
-{...}}``.
+entry per specialization (the MMS and fixed-schedule instances among them),
+one for the bucketed launch, one per GMRES instance the main paths launched
+(``pluck_chunked`` launches ``pluck-gmres``); the last line is ``{"ok":
+true, "device": {...}}``.
+
+``--ab`` times phase 3's (a)-(j) and the bucketed (k)-(m) in each checkout
+given (a directory holding the repository, e.g. an unpacked ``git archive``
+of another commit), each in a process of its own with that checkout's
+inputs and kernel, CUDA events over 20 launches of 256 steps: one line per
+checkout with the times in ms and the card's name and power limit.  Give
+two commits in turns (old, new, new, old) to compare them on one card.
 """
 
 from __future__ import annotations
@@ -144,6 +181,8 @@ REPLACES = {
     "mix": "torch_fdtd_string_tpu/ops/pallas_step.py:452",
     "pluck-pickup": "torch_fdtd_string_tpu/ops/pallas_step.py:775",
     "bucketed": "torch_fdtd_string_tpu/ops/pallas_step.py:999",
+    "pluck-mms": "torch_fdtd_string_tpu/ops/pallas_step.py:392",
+    "pluck-fixed": "torch_fdtd_string_tpu/ops/pallas_step.py:562",
 }
 GMRES_REPLACES = "torch_fdtd_string_tpu/ops/pallas_step.py:624"
 # steps (q) and (r) run past the first pass's earliest NaN (check_rerun)
@@ -164,7 +203,7 @@ LADDER_CLASSIC = ["experiment=nsynth-like", "task.fuse_preprocess=false",
 # on a 256-step timing of the first pass's NaN strings: a string can cost
 # more per step (more GMRES restarts) as it nears its divergence.  Phase 12
 # gets less (30 s at least) when the run would not end by RUN_TARGET_S
-F64_BUDGET_S, F64_SAFETY, RUN_TARGET_S = 240.0, 1.25, 1000.0
+F64_BUDGET_S, F64_SAFETY, RUN_TARGET_S = 180.0, 1.25, 1000.0
 # NVIDIA H100 SXM data sheet: HBM rate, float32 rate outside the tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # float operations per live grid point, counted in csrc/string_step.cu: the
@@ -172,11 +211,40 @@ HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # sweep the z interpolation, relaxation and residuals, and two PCR solves
 # of 4 + 14 per level each
 OPS_STEP, OPS_SWEEP, OPS_PCR_LEVEL = 145, 46, 28
+# of OPS_SWEEP, the adaptive loop's relaxation of u and z and its three
+# residual terms, which a fixed-schedule sweep does not compute
+OPS_RELAX = 12
 # per Arnoldi iteration of the GMRES rescue and lane: the matvec (one
 # RHS-free sweep: two interpolations and stencils, 2 x 4 of the PCR set-up,
 # OPS_PCR_LEVEL per level), w = v - Gv, the new row's norm and scaling, and
 # at least one modified Gram-Schmidt row (dot product and update, 4)
 OPS_ARNOLDI = 42
+# per lane and step of the MMS forcing (csrc/string_step.cu): x_u (6), the
+# u and the z forcing (11 each, counting each cosf as one operation) and
+# their k^2 scaling and subtraction (2 each)
+OPS_MMS = 32
+# phases 13-14: the verification experiments at single precision
+LINEAR = ["experiment=linear-string", "task.precision=single", "task.plot=false",
+          "task.plot_state=false"]
+NONLINEAR = ["experiment=nonlinear-string"] + LINEAR[1:]
+# phase 13's bound on the written state_u against the manufactured solution,
+# max over steps and x of |u - u_exact| / p_a: fixed before the card run
+# from the plain version's reading on the CPU (proc.cpu=true, the same
+# overrides; PERF.md)
+MMS_RUN_BOUND = 0.02
+# phase 16's engine point (batch, seconds): the eager engine takes tens of
+# ms per step on the card
+ENGINE_POINT = (4, 0.005)
+# phase 3 (s): the JAX MMS twin's stiffness and loss spec (T60 20 s at 1 kHz
+# and at 100 Hz)
+MMS_KAPPA, MMS_T60 = 0.03, [[1000.0, 20.0], [100.0, 20.0]]
+# phase 3 (s): the closed form within 2% of p_a at 48 kHz, and the 96 kHz
+# run at least 1.7 times closer (tests/test_pallas_kernel.py:208-216); the
+# f32 plain version meets both on the CPU (PERF.md)
+MMS_TWIN_BOUND, MMS_ORDER_RATIO = 0.02, 1.7
+# phase 3 (t): the fixed schedule against the adaptive kernel at the JAX
+# twin's bounds (tests/test_pallas_kernel.py:219-246)
+FIXED_STATE_REL, FIXED_UOUT_REL = 2e-4, 2e-3
 
 
 def smi():
@@ -232,7 +300,8 @@ def nsynth_draw(overrides):
     consts = simulate.sim_consts(
         string, bm, hm, task.sr, theta, task.lambda_c,
         relative_order=task.relative_order,
-        surface_integral=task.surface_integral, collect_state=True,
+        surface_integral=task.surface_integral, manufactured=task.manufactured,
+        collect_state=True,
     )
     return task, (string, bow, hammer, bm, hm), consts
 
@@ -267,6 +336,49 @@ def strong_inputs(T, device, B=2):
             t(u0), t(u0), t(np.zeros((B, M_l))), t(np.zeros((B, M_l))))
     return args, dict(k=k, theta_t=float(theta), lambda_c=1.0, M_t=M_t, M_l=M_l,
                       surface_integral=False, collect_state=True, gmres_rescue=True)
+
+
+def mms_inputs(f0s, sr, T, p_as, device):
+    """The JAX MMS twin's strings (tests/test_pallas_kernel.py::_kernel_mms)
+    of fundamentals ``f0s`` and amplitudes ``p_as``, float32: the allocation
+    of the lowest f0, each string's initial rows p_a cos^2(pi x) on its own
+    live grid, the forcing at its centered time level, relative_error 8,
+    the first pass's poison-only exits.  Returns string_chunked's args and
+    kwargs and each string's N_t."""
+    from torch_fdtd_string_tpu_torch.ops.fdm import get_derived_vars_np, get_theta
+
+    f0s, p_as = np.asarray(f0s, np.float64), np.asarray(p_as, np.float64)
+    B, k, kappa = len(f0s), 1.0 / sr, MMS_KAPPA
+    theta = get_theta(kappa, float(f0s.min()), sr)
+    _, _, nx_t, _, nx_l, _ = get_derived_vars_np(float(f0s.min()), 0.0, k, theta, 1.0, 1.0)
+    M_t, M_l = int(nx_t) + 1, int(nx_l) + 1
+    N_t = np.array([int(get_derived_vars_np(f, kappa, k, theta, 1.0, 1.0)[2]) for f in f0s])
+    i = np.arange(M_t)[None, :]
+    x = (np.clip(2.0 * i / N_t[:, None], 0.0, 2.0) - 1.0) / 2.0
+    u0 = p_as[:, None] * np.cos(np.pi * x) ** 2 * (i < N_t[:, None] + 1)
+    t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+    args = (t(np.repeat(f0s[:, None], T, axis=1)), t(np.full(B, kappa)), t(np.ones(B)),
+            t(np.full(B, 0.5)), t(np.tile(MMS_T60, (B, 1, 1))),
+            t(u0), t(u0), t(np.zeros((B, M_l))), t(np.zeros((B, M_l))))
+    kwargs = dict(k=k, theta_t=float(theta), lambda_c=1.0, M_t=M_t, M_l=M_l,
+                  coupling_iters=24, relative_error=8.0, collect_state=True,
+                  manufactured=True, mms_centered=True, p_a=t(p_as), gmres_rescue=False)
+    return (args, kwargs), N_t
+
+
+def mms_error(state_u, f0, sr, N_t, p_a, first_step=2):
+    """Largest deviation of ``state_u`` (T, M), rows from ``first_step`` on,
+    from the manufactured solution, relative to ``p_a``."""
+    from torch_fdtd_string_tpu_torch.core.analytic import manufactured_solution
+    from torch_fdtd_string_tpu_torch.utils.audio import T60_to_sigma
+
+    gamma = 2.0 * f0
+    sig0 = float(T60_to_sigma(np.array(MMS_T60), np.array([gamma]),
+                              np.array([MMS_KAPPA * gamma]))[0][0])
+    su = np.asarray(state_u, np.float64)
+    exact = manufactured_solution(first_step + su.shape[0], N_t + 1, gamma, sig0, p_a,
+                                  sr)[first_step:]
+    return float(np.abs(su[:, : N_t + 1] - exact).max() / p_a)
 
 
 def truncate(inputs, T):
@@ -359,13 +471,17 @@ def bound(args, kwargs, sweeps, gmres_iters=None):
     and what bounds it: every input read once and every output written
     once at the HBM rate, or this run's float operations (the plain
     version's sweep counts, and Arnoldi iterations with the GMRES rescue,
-    on the same inputs) at the float32 rate."""
+    on the same inputs) at the float32 rate; with the MMS forcing its
+    per-lane operations, with a fixed schedule the sweeps without the
+    adaptive loop's relaxation and residuals."""
     from torch_fdtd_string_tpu_torch.ops.string_kernel import grid_bounds, pcr_levels
 
     f0 = args[0]
     B, T = f0.shape
     M_t, M_l = kwargs["M_t"], kwargs["M_l"]
     exc = [x for d in (kwargs.get("bow"), kwargs.get("hammer")) if d for x in d.values()]
+    if kwargs.get("manufactured"):
+        exc.append(kwargs["p_a"])
     n_in = sum(x.numel() * x.element_size() for x in list(args) + exc)
     n_out = 4 * (2 * B * T + 2 * B * (M_t + M_l) + T * B * (M_t + M_l)
                  + (3 * B * T if exc else 0))
@@ -376,8 +492,10 @@ def bound(args, kwargs, sweeps, gmres_iters=None):
     levels = np.array([pcr_levels(int(n)) for n in lanes])
     n_sweeps = sweeps.sum(dim=0).cpu().numpy()
     n_arnoldi = 0 if gmres_iters is None else gmres_iters.sum(dim=0).cpu().numpy()
-    ops = float(np.sum(lanes * (T * OPS_STEP
-                                + n_sweeps * (OPS_SWEEP + OPS_PCR_LEVEL * levels)
+    per_step = OPS_STEP + (OPS_MMS if kwargs.get("manufactured") else 0)
+    per_sweep = OPS_SWEEP - (OPS_RELAX if kwargs.get("coupling_fixed") else 0)
+    ops = float(np.sum(lanes * (T * per_step
+                                + n_sweeps * (per_sweep + OPS_PCR_LEVEL * levels)
                                 + n_arnoldi * (OPS_ARNOLDI + OPS_PCR_LEVEL * levels))))
     t_bytes = (n_in + n_out) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -733,6 +851,225 @@ def check_rerun(tag, inputs, dev, card):
                       bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def check_mms(dev, card):
+    """Phase 3 (s): the MMS instance against its plain version and the
+    closed form on the JAX twin's strings."""
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+
+    errs = []
+    for sr, T in ((48000, 1024), (96000, 2048)):
+        tag = f"(s) MMS twin, {sr // 1000} kHz, {T} steps"
+        (args, kwargs), N_t = mms_inputs([220.0], sr, T, [0.01], dev)
+        got = sk.string_chunked(*args, **kwargs)
+        ref, plain_ms = timed_once(lambda: sk.string_chunked_reference(*args, **kwargs))
+        worst = compare(tag, got, ref)
+        err, err_plain = (mms_error(out[2]["state_u"][:, 0].cpu().numpy(), 220.0, sr,
+                                    int(N_t[0]), 0.01) for out in (got, ref))
+        ms = cuda_ms(lambda: sk.string_chunked(*args, **kwargs), reps=5) * 256 / T
+        bound_ms, bound_by = bound(args, kwargs, ref[2]["sweeps"])
+        bound_ms *= 256 / T
+        print(f"[3] {tag}: M_t={kwargs['M_t']}, N_t={int(N_t[0])}; closed-form error "
+              f"{err:.4e} of p_a (plain version {err_plain:.4e}); per 256 steps kernel "
+              f"{ms:.3f} ms, plain {plain_ms * 256 / T:.1f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}) [{card}]")
+        if not err < MMS_TWIN_BOUND:
+            raise AssertionError(f"[3] {tag}: closed-form error {err} >= {MMS_TWIN_BOUND}")
+        errs.append(err)
+    ratio = errs[1] / errs[0]
+    print(f"[3] (s) 96 kHz / 48 kHz closed-form error ratio {ratio:.4f} (second order: "
+          f"below 1/{MMS_ORDER_RATIO} = {1 / MMS_ORDER_RATIO:.4f})")
+    if not ratio < 1.0 / MMS_ORDER_RATIO:
+        raise AssertionError(f"[3] (s) the 96 kHz run is not {MMS_ORDER_RATIO}x closer")
+
+    # p_a through the bucketed launch's row map: 32 strings, two widths
+    f0s = np.where(np.arange(32) % 2 == 0, 110.0, 330.0)
+    p_as = 0.002 + 0.0005 * np.arange(32)
+    (args, kwargs), N_t = mms_inputs(f0s, 48000, 256, p_as, dev)
+    hb = host_bounds(args)
+    groups = sk.bucket_groups(*hb, k=kwargs["k"], theta_t=kwargs["theta_t"],
+                              lambda_c=1.0, M_t=kwargs["M_t"], M_l=kwargs["M_l"])
+    if len(groups) < 2:
+        raise AssertionError(f"[3] (s) bucketed MMS batch in {len(groups)} group")
+    tag = "(s) MMS B=32 bucketed"
+    got = sk.string_chunked_bucketed(*args, host_bounds=hb, **kwargs)
+    ref = sk.string_chunked_bucketed_reference(*args, host_bounds=hb, **kwargs)
+    compare(tag, got, ref)
+    su = got[2]["state_u"].cpu().numpy()
+    worst_cf = max(mms_error(su[:, b], f0s[b], 48000, int(N_t[b]), p_as[b])
+                   for b in range(32))
+    print(f"[3] {tag}: groups {[(w, len(r)) for w, r in groups]}; worst string's "
+          f"closed-form error {worst_cf:.4e} of its p_a")
+    if not worst_cf < MMS_TWIN_BOUND:
+        raise AssertionError(f"[3] {tag}: a string off its closed form ({worst_cf})")
+
+    # the forcing inside the GMRES instance's passes: every step through it
+    tag = "(s) MMS GMRES instance, coupling_iters=1"
+    (args, kwargs), _ = mms_inputs([220.0, 262.0], 48000, 256, [0.01, 0.004], dev)
+    kwargs = dict(kwargs, gmres_rescue=True, coupling_iters=1)
+    check_mms_gmres(tag, (args, kwargs), card)
+
+
+def check_mms_gmres(tag, inputs, card):
+    """The MMS GMRES instance against its plain version over 256 steps.
+    Returns its JSON record."""
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+
+    args, kwargs = inputs
+    got = sk.string_chunked(*args, **kwargs)
+    ref, plain_ms = timed_once(lambda: sk.string_chunked_reference(*args, **kwargs))
+    worst = compare(tag, got, ref, zout_floor=ZOUT_FLOOR)
+    ms = cuda_ms(lambda: sk.string_chunked(*args, **kwargs), reps=3)
+    iters = ref[2]["gmres_iters"]
+    bound_ms, bound_by = bound(args, kwargs, ref[2]["sweeps"], iters)
+    print(f"[3] {tag}: per 256 steps kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}); string-steps through GMRES "
+          f"{int((iters > 0).sum())} of {iters.numel()} [{card}]")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def check_verification_draws(dev, card):
+    """Phase 3 (s), the shapes phases 13 and 14 launch: linear-string's and
+    nonlinear-string's own composed draws at single precision (one string
+    at the allocation of f0 55 or 60 Hz, relative_order 8; linear-string's
+    forcing at the uncentered time level its config leaves) through the
+    bucketed launch, against its plain version over their first steps; and
+    linear-string's string through the MMS GMRES instance with
+    ``coupling_iters=1``, every step through it, as the ladder's re-run
+    would launch it there.  Returns the JSON records of the MMS instance
+    and of its GMRES instance."""
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+
+    recs = {}
+    for name, overrides, spec, T in (("linear-string", LINEAR, "pluck-mms", 1024),
+                                     ("nonlinear-string", NONLINEAR, "pluck", 512)):
+        tag = f"(s) {name}'s draw"
+        args, kwargs = truncate(nsynth_inputs(overrides, dev), T)
+        if kwargs["manufactured"] != (spec == "pluck-mms") or kwargs["mms_centered"]:
+            raise AssertionError(f"[3] {tag}: manufactured {kwargs['manufactured']}, "
+                                 f"mms_centered {kwargs['mms_centered']}")
+        hb = host_bounds(args)
+        launch = lambda: sk.string_chunked_bucketed(*args, host_bounds=hb, **kwargs)
+        sk.reset_launch_counts()
+        got = launch()
+        by_spec = dict(sk.string_chunked.launches_by_spec)
+        if by_spec != {spec: 1}:
+            raise AssertionError(f"[3] {tag}: launches {by_spec}, not one of {spec}")
+        ref, plain_ms = timed_once(lambda: sk.string_chunked_bucketed_reference(
+            *args, host_bounds=hb, **kwargs))
+        worst = compare(tag, got, ref)
+        ms = cuda_ms(launch, reps=5) * 256 / T
+        bound_ms, bound_by = bound(args, kwargs, ref[2]["sweeps"])
+        bound_ms *= 256 / T
+        print(f"[3] {tag}, bucketed, {spec}: B={args[0].shape[0]}, M_t={kwargs['M_t']}, "
+              f"M_l={kwargs['M_l']}, relative_error {kwargs['relative_error']:g}, T={T}; "
+              f"per 256 steps kernel {ms:.3f} ms, plain {plain_ms * 256 / T:.1f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}) [{card}]")
+        recs[name] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms * 256 / T,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    args, kwargs = truncate(nsynth_inputs(LINEAR, dev), 256)
+    gmres = check_mms_gmres("(s) linear-string's draw, MMS GMRES instance, "
+                            "coupling_iters=1",
+                            (args, dict(kwargs, gmres_rescue=True, coupling_iters=1)), card)
+    return recs["linear-string"], gmres
+
+
+def check_mms_run(run, card):
+    """Phase 13's written state against the manufactured solution: the
+    largest deviation over the run, relative to p_a, within MMS_RUN_BOUND."""
+    from torch_fdtd_string_tpu_torch.core.analytic import manufactured_solution
+
+    (item,) = run["items"]
+    z = np.load(os.path.join(run["save_dir"], item, "simulation.npz"))
+    sp = np.load(os.path.join(run["save_dir"], item, "string_params.npz"))
+    su = z["state_u"].astype(np.float64)
+    n_x = int(z["Nx_t"][0]) + 1
+    p_a = float(sp["p_a"])
+    exact = manufactured_solution(su.shape[0], n_x, 2.0 * float(sp["f0"][0]),
+                                  float(z["sig0"]), p_a, SR)
+    err = np.abs(su[:, :n_x] - exact).max(axis=1) / p_a
+    print(f"[13] state_u ({su.shape[0]} steps, {n_x} points) against the manufactured "
+          f"solution: max {err.max():.4e} of p_a at step {int(err.argmax())}, "
+          f"{err[-1]:.4e} at the end; bound {MMS_RUN_BOUND} [{card}]")
+    if not err.max() < MMS_RUN_BOUND:
+        raise AssertionError(f"[13] state_u off the manufactured solution: {err.max()}")
+
+
+def check_fixed(draws, card):
+    """Phase 3 (t): the fixed schedule (1 and 2 sweeps) against its plain
+    version on each draw ``(tag, inputs, hold)``, and two sweeps against the
+    adaptive kernel at the JAX twin's bounds where ``hold``: on the bench
+    workload, the twin's draw.  On the nsynth-like draw, whose strongly
+    coupled strings (alpha up to 25) two plain sweeps do not bring to the
+    adaptive fixed point (the plain version departs from the adaptive one
+    by 1.6e-2 of the state there on the CPU; PERF.md), the deviation is
+    printed.  Returns the JSON record of the first draw's two sweeps: draw
+    (a), the bench workload that phase 15 launches the instance on."""
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+
+    rec = None
+    for tag, inputs, hold in draws:
+        args, kwargs = truncate(inputs, 256)
+        adaptive = sk.string_chunked(*args, **kwargs)
+        for n in (1, 2):
+            kw = dict(kwargs, coupling_fixed=n)
+            name = f"(t) {tag}, coupling_fixed={n}"
+            got = sk.string_chunked(*args, **kw)
+            ref, plain_ms = timed_once(lambda: sk.string_chunked_reference(*args, **kw))
+            worst = compare(name, got, ref)
+            ms = cuda_ms(lambda: sk.string_chunked(*args, **kw), reps=10)
+            bound_ms, bound_by = bound(args, kw, ref[2]["sweeps"])
+            fin = (torch.isfinite(adaptive[0]).all(dim=1)
+                   & torch.isfinite(got[0]).all(dim=1))
+            a_u1, f_u1 = adaptive[2]["carry"][0][fin], got[2]["carry"][0][fin]
+            dev_state = float((f_u1 - a_u1).abs().max() / (a_u1.abs().max() + 1e-12))
+            a_uo = adaptive[0][fin]
+            dev_out = float((got[0][fin] - a_uo).abs().max() / (a_uo.abs().max() + 1e-12))
+            print(f"[3] {name}: per 256 steps kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, "
+                  f"bound {bound_ms:.5f} ms ({bound_by}); against the adaptive kernel "
+                  f"over {int(fin.sum())} finite strings: final state {dev_state:.3e}, "
+                  f"uout {dev_out:.3e} of scale [{card}]")
+            if (hold and n == 2
+                    and not (dev_state < FIXED_STATE_REL and dev_out < FIXED_UOUT_REL)):
+                raise AssertionError(f"[3] {name}: off the adaptive kernel's fixed point")
+            if n == 2 and rec is None:
+                rec = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
+    return rec
+
+
+def check_pluck_chunked(inputs, card):
+    """Phase 3 (u): ``pluck_chunked`` equals ``string_chunked`` with the
+    same keywords bit for bit (its default GMRES instance, state collected)
+    and its plain version at the phase-3 bounds.  Returns the JSON record of
+    the instance it launches, ``pluck-gmres``."""
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+
+    args, kwargs = truncate(inputs, 256)
+    kw = {key: v for key, v in kwargs.items() if key != "gmres_rescue"}
+    sk.reset_launch_counts()
+    uo, zo, fin = sk.pluck_chunked(*args, **kw)
+    if sk.string_chunked.launches_by_spec != {"pluck-gmres": 1}:
+        raise AssertionError(f"[3] (u) pluck_chunked launched "
+                             f"{sk.string_chunked.launches_by_spec}, not pluck-gmres")
+    want = sk.string_chunked(*args, **kw)
+    for a, b in zip((uo, zo) + tuple(fin),
+                    (want[0], want[1]) + want[2]["carry"]
+                    + (want[2]["state_u"], want[2]["state_z"])):
+        if not bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()):
+            raise AssertionError("[3] (u) pluck_chunked differs from string_chunked")
+    ref, plain_ms = timed_once(lambda: sk.string_chunked_reference(*args, **kw))
+    worst = compare("(u) pluck_chunked, draw (a)", (uo, zo, {"state_u": fin[4],
+                                                             "state_z": fin[5]}), ref)
+    ms = cuda_ms(lambda: sk.pluck_chunked(*args, **kw), reps=10)
+    bound_ms, bound_by = bound(args, kw, ref[2]["sweeps"], ref[2]["gmres_iters"])
+    print(f"[3] (u) pluck_chunked, draw (a): one pluck-gmres launch, equal to "
+          f"string_chunked bit for bit; per 256 steps {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}) [{card}]")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
 def ptxas_report(log):
     """ptxas's resource lines per string_step instance, by specialization
     name, from nvcc's ``-Xptxas=-v`` messages."""
@@ -742,12 +1079,14 @@ def ptxas_report(log):
            ("1", "1"): "mix"}
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"string_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", line)
+        m = re.search(r"string_step_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E"
+                      r"(?:Lb(\d)ELb(\d)E)?", line)
         if "Compiling entry function" in line:
             name = None
             if m:
-                bow, ham, surf, gm = m.groups()
+                bow, ham, surf, gm, mms, fixed = m.groups()
                 name = (exc[(bow, ham)] + ("" if surf == "1" else "-pickup")
+                        + ("-mms" if mms == "1" else "") + ("-fixed" if fixed == "1" else "")
                         + ("-gmres" if gm == "1" else ""))
                 out[name] = []
         elif name and ("registers" in line or "spill" in line):
@@ -823,16 +1162,121 @@ def check_ladder(phase, batches, task, wall, card, need_nan=False):
           f"{n * task.length / wall:.3f} audio-s/s [{card}]")
 
 
+def drive_kernel_timing(dev, card):
+    """Phase 15: the sweep-schedule probe at its two batch sizes (counts set
+    to 0 just before, read just after).  Returns the fixed-schedule
+    instance's launches and the launches by specialization."""
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+    from torch_fdtd_string_tpu_torch.tools import kernel_timing
+
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = kernel_timing.run_timing(reps=3, device=dev)
+    wall = time.perf_counter() - t0
+    by_spec = dict(sk.string_chunked.launches_by_spec)
+    print(json.dumps(res, allow_nan=False))
+    for name, row in res.items():
+        dev_note = ""
+        if "max_rel_dev_vs_adaptive" in row:
+            dev_note = (f", max rel dev of uout vs adaptive {row['max_rel_dev_vs_adaptive']:.3e}"
+                        f" ({row['nonfinite_strings']} strings left non-finite)")
+        print(f"[15] {name}: {row['wall_s'] * 1e3:.2f} ms, {row['audio_s_per_s']:.2f} "
+              f"audio-s/s{dev_note} [{card}]")
+    print(f"[15] kernel_timing: launches {by_spec}, wall {wall:.2f} s")
+    if by_spec.get("pluck-fixed", 0) < 1:
+        raise AssertionError("[15] the fixed-schedule instance did not launch")
+    return by_spec["pluck-fixed"], by_spec
+
+
+def drive_time_experiment(dev, card):
+    """Phase 16: the time-scaling sweep at the JAX axes, kernel only (counts
+    set to 0 just before, read just after), every point present; then one
+    engine point.  Returns the launches by specialization: ``pluck_chunked``
+    launches the ``pluck-gmres`` instance."""
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+    from torch_fdtd_string_tpu_torch.tasks import time_experiment as te
+
+    out_dir = os.path.join(ROOT, "results", "chip_smoke_16")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    te.run_sweep(out_dir, with_engine=False, device=dev)
+    wall = time.perf_counter() - t0
+    by_spec = dict(sk.string_chunked.launches_by_spec)
+    with open(os.path.join(out_dir, "time_experiment.json")) as f:
+        res = json.load(f)
+    want = {"batch": [4, 16, 64, 256], "length": [0.25, 0.5, 1.0]}
+    for axis, xs in want.items():
+        points = res[axis]["kernel"]
+        if [x for x, _ in points] != xs or not all(np.isfinite(t) and t > 0
+                                                   for _, t in points):
+            raise AssertionError(f"[16] the {axis} axis: points {points}")
+        print(f"[16] {axis} axis, kernel (pluck_chunked): "
+              + ", ".join(f"{x}: {t * 1e3:.2f} ms" for x, t in points) + f" [{card}]")
+    print(f"[16] time_experiment.json: backend {res['backend']}, device {res['device']}; "
+          f"kernel launches {by_spec}, wall {wall:.2f} s")
+    if by_spec.get("pluck-gmres", 0) < 1:
+        raise AssertionError("[16] pluck_chunked did not launch the pluck-gmres instance")
+    # the eager engine takes tens of ms per step: one short point, not the
+    # JAX sweep's 0.25 s ones
+    B, length = ENGINE_POINT
+    wl = te.build_workload(B=B, length=length, device=dev)[0]
+    secs = te._time_engine(wl, dev, reps=1)
+    print(f"[16] engine point: B={B}, {len(wl[1])} steps in {secs:.2f} s = "
+          f"{secs / len(wl[1]) * 1e3:.2f} ms per step [{card}]")
+    return by_spec
+
+
 def add_gmres(acc, by_spec):
     for spec, n in by_spec.items():
         if spec.endswith("-gmres"):
             acc[spec] = acc.get(spec, 0) + n
 
 
+def ab_times(root):
+    """``--ab``'s timing of one checkout, in a process of its own: the
+    checkout's own chip_smoke inputs and string kernel."""
+    sys.path.insert(0, root)
+    os.chdir(root)
+    import chip_smoke as cs
+    from torch_fdtd_string_tpu_torch.ops import build
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+
+    dev = torch.device("cuda")
+    build.load_kernel_library("string_step")
+    inputs = {
+        "a": cs.bench_inputs(4, 0.02, 7, dev), "b": cs.nsynth_inputs(cs.NSYNTH, dev),
+        "c": cs.nsynth_inputs(cs.NSYNTH + cs.BOW16, dev),
+        "d": cs.nsynth_inputs(cs.NSYNTH + cs.HAMMER, dev),
+        "e": cs.nsynth_inputs(cs.NSYNTH + cs.MIX, dev), "j": cs.nsynth_inputs(cs.PICKUP4, dev),
+        "k": cs.nsynth_inputs(cs.FUSED, dev), "l": cs.nsynth_inputs(cs.CORPUS48, dev),
+        "m": cs.nsynth_inputs(cs.CORPUS48 + cs.MIX, dev),
+    }
+    out = {}
+    for tag, (args, kw) in inputs.items():
+        args, kw = cs.truncate((args, kw), 256)
+        if tag in "klm":
+            hb = cs.host_bounds(args)
+            fn = lambda: sk.string_chunked_bucketed(*args, host_bounds=hb, **kw)
+        else:
+            fn = lambda: sk.string_chunked(*args, **kw)
+        out[tag] = cs.cuda_ms(fn, reps=20)
+    print(f"[ab] {root}: {json.dumps(out)} [{cs.smi()}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ab-one"]:
+        ab_times(os.path.abspath(sys.argv[2]))
+        return 0
+    if sys.argv[1:2] == ["--ab"]:
+        for root in sys.argv[2:]:
+            # this file by path, so that each checkout's own package is imported
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-one",
+                            os.path.abspath(root)], check=True, cwd=os.path.abspath(root))
+        return 0
     from torch_fdtd_string_tpu_torch.ops import build
     from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
     from torch_fdtd_string_tpu_torch.ops.string_kernel import (
@@ -868,10 +1312,9 @@ def main():
     print(f"[2] string_step built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.build_seconds.get('string_step', 0.0):.2f} s)")
     ptxas = ptxas_report(build.build_log.get("string_step", ""))
-    print(f"[2] {len(ptxas)} instances compiled; the GMRES instances' ptxas report:")
+    print(f"[2] {len(ptxas)} instances compiled; ptxas report:")
     for name, lines in ptxas.items():
-        if name.endswith("-gmres"):
-            print(f"[2]   {name}: {' | '.join(lines)}")
+        print(f"[2]   {name}: {' | '.join(lines)}")
 
     # ---- 3. kernel vs plain version on the card, float32, per specialization
     shape_b = nsynth_inputs(NSYNTH, dev)
@@ -996,6 +1439,17 @@ def main():
                         ("(r) phase 12's draw, model.excitation=null B=24",
                          nsynth_inputs(LADDER_CLASSIC, dev))):
         spec, gm_record[spec] = check_rerun(tag, inputs, dev, card)
+
+    # (s)-(u): the MMS forcing, the fixed schedule, pluck_chunked.  The MMS
+    # records are of the verification runs' own draws; pluck-gmres's is (u)'s
+    # rather than (q)'s: phases 15 and 16 launch it on the bench workload,
+    # far more often than phase 11's re-run
+    check_mms(dev, card)
+    record["pluck-mms"], gm_record["pluck-mms-gmres"] = check_verification_draws(dev, card)
+    record["pluck-fixed"] = check_fixed(
+        [("draw (a)", bench_inputs(4, 0.02, 7, dev), True), ("draw (b)", shape_b, False)],
+        card)
+    gm_record["pluck-gmres"] = check_pluck_chunked(bench_inputs(4, 0.02, 7, dev), card)
     print(f"[3] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4-8. the classic paths -------------------------------------------------
@@ -1054,8 +1508,21 @@ def main():
           f"audio-s/s end to end [{card}]")
     print(f"[10] done at {time.perf_counter() - t_start:.1f} s")
 
-    # ---- 11-12. the rescue ladder ----------------------------------------------
+    # ---- 13-16. the verification and the timing paths ------------------------
     gm_launches = {}
+    launches["pluck-mms"], lin = drive(13, "experiment=linear-string, single precision",
+                                       LINEAR, "pluck-mms", card)
+    check_mms_run(lin, card)
+    add_gmres(gm_launches, lin["by_spec"])
+    _, nonlin = drive(14, "experiment=nonlinear-string, single precision", NONLINEAR,
+                      "pluck", card)
+    add_gmres(gm_launches, nonlin["by_spec"])
+    launches["pluck-fixed"], by_spec = drive_kernel_timing(dev, card)
+    add_gmres(gm_launches, by_spec)
+    add_gmres(gm_launches, drive_time_experiment(dev, card))
+    print(f"[16] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 11-12. the rescue ladder ----------------------------------------------
     length = ladder_length(11, LADDER_FUSED, dev, card, F64_BUDGET_S, on_card=True)
     lad = drive_fused(11, "rescue ladder, corpus recipe B=48 (fused)",
                       LADDER_FUSED + [f"task.length={length}"], PREP_KEYS_CORPUS, 8, card)
@@ -1083,8 +1550,9 @@ def main():
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [dict(
-        name=f"string_step[{spec}]", route="cuda", source=KERNEL_SRC,
-        replaces=REPLACES[spec], launches=launches[spec], **record[spec],
+        name=f"string_step[{spec}]", route="cuda",
+        source=KERNEL_SRC, replaces=REPLACES[spec], launches=launches[spec],
+        **record[spec],
     ) for spec in REPLACES] + [dict(
         name=f"string_step[{spec}]", route="cuda", source=KERNEL_SRC,
         replaces=GMRES_REPLACES, launches=n, **gm_record[spec],

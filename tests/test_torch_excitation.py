@@ -203,17 +203,17 @@ def test_specialization_names():
 
 
 def test_launch_args_layout():
-    """The ctypes mirror of csrc/string_step.cu::LaunchArgs: 15 ints, 4
-    doubles, 35 pointers (the bucketed launch's row map first), natural
+    """The ctypes mirror of csrc/string_step.cu::LaunchArgs: 18 ints, 4
+    doubles, 36 pointers (the bucketed launch's row map first), natural
     alignment (the kernel compares struct_size with its own sizeof)."""
     import ctypes
     import re
 
     fields = sk._LaunchArgs._fields_
-    assert [f[1] for f in fields] == ([ctypes.c_int] * 15 + [ctypes.c_double] * 4
-                                      + [ctypes.c_void_p] * 35)
-    # 15 ints fill 60 bytes, padded to 64 for the first double
-    assert ctypes.sizeof(sk._LaunchArgs) == 64 + 4 * 8 + 35 * 8
+    assert [f[1] for f in fields] == ([ctypes.c_int] * 18 + [ctypes.c_double] * 4
+                                      + [ctypes.c_void_p] * 36)
+    # 18 ints fill 72 bytes, a multiple of the doubles' alignment
+    assert ctypes.sizeof(sk._LaunchArgs) == 72 + 4 * 8 + 36 * 8
     src = open(sk.__file__.replace("ops/string_kernel.py", "csrc/string_step.cu")).read()
     body = src[src.index("struct LaunchArgs {"):]
     body = body[: body.index("};")]

@@ -124,6 +124,8 @@ def test_port_imports_no_jax():
         "import torch_fdtd_string_tpu_torch.utils.data\n"
         "import torch_fdtd_string_tpu_torch.utils.frequency\n"
         "import torch_fdtd_string_tpu_torch.run\n"
+        "import torch_fdtd_string_tpu_torch.tasks.time_experiment\n"
+        "import torch_fdtd_string_tpu_torch.tools.kernel_timing\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or m.split('.')[0] == 'torch_fdtd_string_tpu')\n"
         "print(bad)\n"
@@ -136,7 +138,6 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("override,what", [
-    ("task.write_during_process=true", "writing during the process"),
     ("task.plot=true", "plots"),
 ])
 def test_unported_run_options_raise(tmp_path, override, what):

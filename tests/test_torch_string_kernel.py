@@ -110,23 +110,6 @@ def test_diverged_element_does_not_poison_batch(workload):
         np.testing.assert_array_equal(a[1:], b)
 
 
-UNPORTED = {
-    "manufactured": dict(manufactured=True),
-    "coupling_fixed": dict(coupling_fixed=2),
-}
-
-
-@pytest.mark.parametrize("fn", [sk.string_chunked, sk.string_chunked_reference],
-                         ids=["string_chunked", "reference"])
-@pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_unported_specialization_raises(workload, fn, case):
-    arrays, kw = _inputs(workload, np.float32, T=4)
-    kw.update(UNPORTED[case])
-    tensors = [torch.tensor(a) for a in arrays]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item"):
-        fn(*tensors, **kw)
-
-
 def test_dispatch_counts_only_kernel_launches(workload):
     """CPU tensors take the plain version and do not count as launches; a
     device the port has no path for raises instead of falling back."""

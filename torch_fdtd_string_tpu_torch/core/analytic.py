@@ -1,8 +1,10 @@
 """Modal solution of the clamped lossy stiff string (host numpy/scipy).
 
 Port of the parts of ``torch_fdtd_string_tpu/core/analytic.py`` that the
-fused dataset path uses: the mode frequencies and shapes that label each
-training item (reference ``src/model/analytic.py:143-388``).  The roots of
+fused dataset path and the verification runs use: the mode frequencies and
+shapes that label each training item (reference
+``src/model/analytic.py:143-388``), and the manufactured solution the MMS
+runs are held to.  The roots of
 the transcendental mode equations are found on the host by
 Levenberg-Marquardt, seeded from a kappa-interpolated root table; the
 coefficient fit is a direct ``lstsq`` solve.
@@ -29,6 +31,14 @@ MACHINE_EPS = 2.23e-16
 CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "cache")
+
+
+def manufactured_solution(Nt, Nx, gamma, sig0, p_a, sr):
+    """u(x, t) = p_a cos^2(pi x) cos(gamma t) exp(-sig0 t) on x in [-1/2,
+    1/2], ``(Nt, Nx)`` at t = n / sr (reference analytic.py:21-27)."""
+    x = np.linspace(-0.5, 0.5, Nx)
+    t = np.arange(Nt)[:, None] / sr
+    return p_a * np.cos(np.pi * x)[None, :] ** 2 * np.cos(gamma * t) * np.exp(-sig0 * t)
 
 
 def t60_to_sigma_scalar(T60, gamma, K):

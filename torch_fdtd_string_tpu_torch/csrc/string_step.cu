@@ -1,13 +1,15 @@
 // Fused string step for NVIDIA Hopper (sm_90a): all T audio-rate steps of B
 // independent strings in one launch.
 //
-// Replaces torch_fdtd_string_tpu/ops/pallas_step.py::_kernel with adaptive
-// damped block Gauss-Seidel coupling, in sixteen compile-time
-// specializations: with or without the bow branch, with or without the
-// hammer branch, the surface-integral or the interpolated pickup readout,
-// and poison-only exits (gmres_rescue=False, the first pass) or the in-kernel
-// GMRES rescue (kGmres, the rescue ladder's re-run); optional collect_state
-// streaming.  The plain PyTorch version of the same algorithm is
+// Replaces torch_fdtd_string_tpu/ops/pallas_step.py::_kernel, in 22
+// compile-time specializations: with or without the bow branch, with or
+// without the hammer branch, the surface-integral or the interpolated pickup
+// readout, and poison-only exits (gmres_rescue=False, the first pass) or the
+// in-kernel GMRES rescue (kGmres, the rescue ladder's re-run); and for
+// plucked strings alone, with either readout, the manufactured-solution
+// (MMS) forcing of the verification runs (kMms, first pass and GMRES) and
+// the fixed sweep schedule (kFixed).  collect_state streaming is a runtime
+// option.  The plain PyTorch version of the same algorithm is
 // ops/string_kernel.py::string_chunked_reference.
 //
 // Design: one CTA per string, one thread per grid point.  The block width W
@@ -60,6 +62,28 @@
 // the order of the block reductions.  ops/string_kernel.py launches one
 // group per stream.
 //
+// MMS forcing (manufactured, pallas_step.py:392-412): the closed-form
+// source of the verification runs is subtracted from the u and z RHS before
+// the z live-row mask, u at its grid's x = (clip(2i/N_t, 0, 2) - 1)/2 and z
+// at x = 1/2, at time (n - [mms_centered]) k with n the step's index counted
+// from 2 at the launch's first step, as the JAX kernel counts it (every
+// launch of the port starts at the run's step 2).  p_a is read through the
+// CTA->row map, so the bucketed launch and the rows-only GMRES re-run carry
+// it too.  It costs four accurate cosf per lane and, per string, one cosf
+// and one expf per step: ~32 float operations per lane and step.  MMS and
+// the fixed schedule are compile-time parameters of the pluck instances
+// only: as runtime branches they cost the other first-pass instances, which
+// sit at the 64-register bound, more spills and up to 7% (bow) of their
+// time; no path runs either with a bow or a hammer, and the launcher
+// refuses that combination.
+//
+// The fixed schedule (coupling_fixed > 0, pallas_step.py:517-519, :562-570):
+// exactly that many plain sweeps (omega 1, the first reusing the RHS pass's
+// z interpolation), with none of the adaptive loop's block reductions and
+// no exit test, so no exit is untrusted: no poison and no rescue (the host
+// selects a kGmres=false instance).  Saving the reductions is the point of
+// the schedule.
+//
 // Entry point: string_step_launch (plain C, loaded with ctypes) takes a
 // LaunchArgs struct and returns the cudaError_t of the launch.
 
@@ -75,6 +99,7 @@
 // (the pickup), phi_0, phi_1, bmask, x_H, w_H, M_r, alpha_H, hmask and the
 // initial hammer displacements uH1, uH2 are (B,); t60 is (B, 4) (freq1,
 // time1, freq2, time2); u1, u2 are rows n-1, n-2 (B, M_t), z1, z2 (B, M_l).
+// With manufactured, p_a is the (B,) MMS amplitude.
 // Outputs: uout, zout and, with an excitation, the probe traces v_r, F_H,
 // u_H are (B, T); the final carry u1_out, u2_out (B, M_t), z1_out, z2_out
 // (B, M_l); state_u (T, B, M_t) and state_z (T, B, M_l), or both null.
@@ -87,11 +112,12 @@ struct LaunchArgs {
   int struct_size, B, T, M_t, M_l, W, M_t_sem, coupling_iters;
   int has_bow, has_hammer, surface_integral, gmres;
   int B_rows, ld_t, ld_l;
+  int manufactured, mms_centered, coupling_fixed;
   double k, theta, lambda_c, relative_error;
   const int *rows;
   const float *f0, *kappa, *alpha, *pos, *t60, *u1, *u2, *z1, *z2;
   const float *x_b, *v_b, *F_b, *wid, *phi_0, *phi_1, *bmask;
-  const float *x_H, *w_H, *M_r, *alpha_H, *hmask, *uH1, *uH2;
+  const float *x_H, *w_H, *M_r, *alpha_H, *hmask, *uH1, *uH2, *p_a;
   float *uout, *zout, *u1_out, *u2_out, *z1_out, *z2_out, *state_u, *state_z;
   float *v_r, *F_H, *u_H;
 };
@@ -105,6 +131,7 @@ struct Params : LaunchArgs {
   int levels;
   float k_f, k2, k4, theta_f, c_half, c_a0, two_t, two_two_t, lambda_f, two_pi;
   float ln10_6, inner_eps, M_t_sem_f;
+  float pi_f, mu2, two_mu2;  // the MMS forcing's pi, pi^2 and 2 pi^2
 };
 
 constexpr float kOmegaFloor = 0.0625f;
@@ -229,7 +256,7 @@ __device__ __forceinline__ float pcr(float sub, float diag, float sup, float rhs
   return d;
 }
 
-template <bool kBow, bool kHammer, bool kSurface, bool kGmres>
+template <bool kBow, bool kHammer, bool kSurface, bool kGmres, bool kMms, bool kFixed>
 __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   constexpr bool kExc = kBow || kHammer;
   constexpr int kStepSums = (kBow ? 1 : 0) + (kHammer ? 2 : 0);
@@ -394,14 +421,32 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
     const float V_u2 = -phi_pow * (lam2 * u2m - (lam2 + d_next) * u2 + d_next * u2p) / hh_t;
     const float B1u1 = -2.0f * theta_u1 - gamma_k * dxx_u1 + KK * p.k2 * dxxxx_u1;
     const float C1u2 = theta_u2 - 2.0f * sig0 * k * u2 + 2.0f * sig1 * k * dxx_u2 + V_u2;
-    const float rhs_u0 = B1u1 + C1u2 + 2.0f * K_tl1 + K_tl2;
-    float rhs_u = rhs_u0 * live_t;  // iterate-independent without an excitation
+    float rhs_u0 = B1u1 + C1u2 + 2.0f * K_tl1 + K_tl2;
     const float dxx_z1 = (Z1(i + 1) - 2.0f * z1 + Z1(i - 1)) / hh_l;
     const float dxx_z2 = (Z2(i + 1) - 2.0f * z2 + Z2(i - 1)) / hh_l;
     const float B4z1 = -2.0f * z1 - gamma_k * (alpha * alpha) * dxx_z1;
     const float C4z2 = (1.0f - 2.0f * sig0 * k) * z2 + 2.0f * sig1 * k * dxx_z2;
+    float rhs_z = B4z1 + C4z2 + K_lt2;
+    if constexpr (kMms) {
+      // -forcing k^2, the forcing p_a (c1 cos^2(pi x) + c2 cos(2 pi x))
+      // cos(gamma t) exp(-sig0 t), constants folded as the plain version
+      // folds them
+      const float t_now = (static_cast<float>(t + 2) - (p.mms_centered ? 1.0f : 0.0f)) * k;
+      const float c1 = sig0 * sig0 - gamma * gamma - 2.0f * sig0 * sig0;
+      const float c2 = p.two_mu2 * (4.0f * KK * p.mu2 + gamma * gamma);
+      const float cos_t = cosf(gamma * t_now), exp_t = expf(-sig0 * t_now);
+      const float p_a = p.p_a[b];
+      auto force = [&](float x) {
+        const float cx = cosf(p.pi_f * x);
+        return p_a * (c1 * (cx * cx) + c2 * cosf(p.two_pi * x)) * cos_t * exp_t;
+      };
+      const float x_u = (fminf(fmaxf(2.0f * itf / N_t, 0.0f), 2.0f) - 1.0f) / 2.0f;
+      rhs_u0 = rhs_u0 - force(x_u) * p.k2;
+      rhs_z = rhs_z - force(0.5f) * p.k2;
+    }
+    float rhs_u = rhs_u0 * live_t;  // iterate-independent without an excitation
     const float z_keep = fminf(fmaxf(N_t + N_l + 2.0f - p.M_t_sem, 0.0f), n_l);
-    const float rhs_z = (B4z1 + C4z2 + K_lt2) * (itf < z_keep ? 1.0f : 0.0f);
+    rhs_z = rhs_z * (itf < z_keep ? 1.0f : 0.0f);
 
     // ---- excitation profiles, iterate-independent parts
     // (pallas_step.py:418-447): the bow's raised cosine over the first M_t
@@ -516,7 +561,8 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       return pcr(sub_l, diag_l, sup_l, -rhs_zs - K_lt, pcr_buf, p.levels);
     };
 
-    // ---- adaptive damped block Gauss-Seidel (pallas_step.py:505-578) ------
+    // ---- adaptive damped block Gauss-Seidel (pallas_step.py:505-578), or
+    // the fixed schedule's plain sweeps (:517-519, :562-570) ----------------
     float u_c = u1, z_c = z1, omega = 1.0f, prev = INFINITY, scale_u = 0.0f;
     float v_rel = 0.0f, F_H = 0.0f, u_H = 0.0f;  // probe values of the last sweep
     bool hopeless = false;
@@ -526,6 +572,12 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       if (sweep > 0) K_tl = K_tl_of(z_c);
       const float u_g = pcr(sub_t, diag_t, sup_t, -rhs_u - K_tl, pcr_buf, p.levels);
       const float z_g = z_solve(u_g, rhs_z);
+      if constexpr (kFixed) {  // plain sweeps: no relaxation, reduction or exit test
+        u_c = u_g;
+        z_c = z_g;
+        if (sweep + 1 >= p.coupling_fixed) break;
+        continue;
+      }
 
       const float u_c2 = u_c + omega * (u_g - u_c);
       const float z_c2 = z_c + omega * (z_g - z_c);
@@ -546,8 +598,10 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
 
     // ---- untrusted exits (pallas_step.py:593-609): hopeless, non-finite or
     // above tolerance at the sweep cap; uniform across the block.  Poisoned,
-    // or in the kGmres instance solved again by GMRES (:610-764) ------------
-    const bool bad = hopeless || !(prev < INFINITY) || prev > inner_eps * scale_u;
+    // or in the kGmres instance solved again by GMRES (:610-764).  The fixed
+    // schedule has no exit test and trusts every exit ----------------------
+    const bool bad =
+        !kFixed && (hopeless || !(prev < INFINITY) || prev > inner_eps * scale_u);
     if constexpr (kGmres) {
       if (bad) {
         // GMRES(m) on (I - G) z = c from z = 0, G z the z of one RHS-free
@@ -689,13 +743,14 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
   }
 }
 
-template <bool kBow, bool kHammer, bool kSurface, bool kGmres>
+template <bool kBow, bool kHammer, bool kSurface, bool kGmres, bool kMms = false,
+          bool kFixed = false>
 cudaError_t launch(const Params& p, int W, cudaStream_t stream) {
   const size_t smem =
       (static_cast<size_t>(kNumArrays + (kBow ? 1 : 0)) * W + kRedFloats +
        (kGmres ? static_cast<size_t>(kGmresRows) * W + kGmresSmall : 0)) *
       sizeof(float);
-  auto kernel = string_step_kernel<kBow, kHammer, kSurface, kGmres>;
+  auto kernel = string_step_kernel<kBow, kHammer, kSurface, kGmres, kMms, kFixed>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -730,6 +785,12 @@ extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
       a->B < 1 || a->T < 1 || a->coupling_iters < 1 || a->M_t_sem < 1 ||
       a->ld_t < a->M_t || a->ld_l < a->M_l ||
       (a->rows == nullptr ? a->B_rows != a->B : a->B_rows < 1) ||
+      (a->manufactured != 0 && a->p_a == nullptr) || a->coupling_fixed < 0 ||
+      // MMS and the fixed schedule: plucked strings only, not together,
+      // and the fixed schedule without the rescue
+      ((a->manufactured != 0 || a->coupling_fixed > 0) && (has_bow || has_hammer)) ||
+      (a->manufactured != 0 && a->coupling_fixed > 0) ||
+      (a->coupling_fixed > 0 && a->gmres != 0) ||
       (a->state_u == nullptr) != (a->state_z == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -751,9 +812,27 @@ extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
   p.ln10_6 = static_cast<float>(6.0 * log(10.0));
   p.inner_eps = static_cast<float>(100.0 * 1.1920928955078125e-07);  // 100 FLT_EPSILON
   p.M_t_sem_f = static_cast<float>(a->M_t_sem);
+  p.pi_f = static_cast<float>(M_PI);
+  p.mu2 = static_cast<float>(M_PI * M_PI);
+  p.two_mu2 = static_cast<float>(2.0 * (M_PI * M_PI));
 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  if (a->coupling_fixed > 0) {
+    err = surface ? launch<false, false, true, false, false, true>(p, W, s)
+                  : launch<false, false, false, false, false, true>(p, W, s);
+    return static_cast<int>(err);
+  }
+  if (a->manufactured != 0) {
+    if (a->gmres != 0) {
+      err = surface ? launch<false, false, true, true, true>(p, W, s)
+                    : launch<false, false, false, true, true>(p, W, s);
+    } else {
+      err = surface ? launch<false, false, true, false, true>(p, W, s)
+                    : launch<false, false, false, false, true>(p, W, s);
+    }
+    return static_cast<int>(err);
+  }
   const int spec = (a->gmres != 0 ? 8 : 0) | (has_bow ? 4 : 0) | (has_hammer ? 2 : 0) |
                    (surface ? 1 : 0);
   switch (spec) {

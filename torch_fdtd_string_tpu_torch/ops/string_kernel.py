@@ -9,7 +9,8 @@ output at the pickup or as the surface integral.
 :func:`string_chunked` dispatches on the device of its inputs:
 
 * CUDA tensors launch the hand-written Hopper kernel ``csrc/string_step.cu``
-  (built on first use by ``ops/build.py``) or raise;
+  (built on first use by ``ops/build.py``) or raise (the kernel has the MMS
+  forcing and the fixed schedule for plucked strings only, one at a time);
 * CPU tensors run :func:`string_chunked_reference`, the plain PyTorch
   version of the same algorithm, in float32 or float64.
 
@@ -18,17 +19,19 @@ the strings of a batch in width groups (:func:`bucket_groups`), each at its
 own block width, one launch per group on its own stream; its plain version
 is :func:`string_chunked_bucketed_reference`.
 
-Ported specializations: pluck, bow, hammer and any mix of them per string
+Specializations: pluck, bow, hammer and any mix of them per string
 (``bow`` / ``hammer`` dicts with per-string masks), the surface-integral
-and the interpolated pickup readout, the adaptive sweep schedule
-(``coupling_fixed=0``), and for untrusted sweep exits either poison-only
-(``gmres_rescue=False``, the first pass) or the in-kernel GMRES rescue
-(``gmres_rescue=True``: GMRES(16) on the step's z fixed point, one pass, or
-two with an excitation).  :func:`string_chunked_rerun` re-runs chosen rows
-of a batch in place, as the rescue ladder re-runs a first pass's NaN
-strings.  MMS forcing and the fixed sweep schedule raise
-``NotImplementedError`` on both devices and name the ROADMAP Queue 2 item
-that ports them.
+and the interpolated pickup readout, the manufactured-solution (MMS)
+forcing of the verification runs (``manufactured=True`` with a per-string
+amplitude ``p_a``), and two sweep schedules: the adaptive one
+(``coupling_fixed=0``), whose untrusted exits are either poisoned
+(``gmres_rescue=False``, the first pass) or solved again by the in-kernel
+GMRES rescue (``gmres_rescue=True``: GMRES(16) on the step's z fixed point,
+one pass, or two with an excitation), or exactly ``coupling_fixed`` plain
+Gauss-Seidel sweeps with no exit test, no poison and no rescue.
+:func:`string_chunked_rerun` re-runs chosen rows of a batch in place, as the
+rescue ladder re-runs a first pass's NaN strings; :func:`pluck_chunked` is
+the JAX package's wrapper with the older return signature.
 
 Semantics follow the JAX kernel line by line with one deliberate change:
 each string leaves its Gauss-Seidel loop, the hammer's inner fixed point
@@ -73,17 +76,28 @@ class KernelConsts(NamedTuple):
     has_bow: bool
     has_hammer: bool
     relative_error: float  # hammer tolerance h_t ** relative_error
-    gmres_rescue: bool  # untrusted exits solved again by GMRES, not poisoned
+    # untrusted exits solved again by GMRES, not poisoned; never with a
+    # fixed schedule, which has no exit test
+    gmres_rescue: bool
+    manufactured: bool = False  # MMS forcing (pallas_step.py:392-412)
+    mms_centered: bool = False  # its time level: (n - 1) k, not n k
+    coupling_fixed: int = 0  # > 0: exactly that many sweeps, no exit test
 
     @property
     def name(self):
         """Specialization name: pluck, bow, hammer or mix, ``-pickup`` with
-        the interpolated pickup readout, ``-gmres`` with the rescue."""
+        the interpolated pickup readout, ``-mms`` with the manufactured
+        forcing, ``-fixed`` with the fixed sweep schedule, ``-gmres`` with
+        the rescue."""
         exc = {(False, False): "pluck", (True, False): "bow",
                (False, True): "hammer", (True, True): "mix"}
         name = exc[(self.has_bow, self.has_hammer)]
         if not self.surface_integral:
             name += "-pickup"
+        if self.manufactured:
+            name += "-mms"
+        if self.coupling_fixed > 0:
+            name += "-fixed"
         return name + "-gmres" if self.gmres_rescue else name
 
 
@@ -95,13 +109,14 @@ class _LaunchArgs(ctypes.Structure):
         [(n, ctypes.c_int) for n in (
             "struct_size", "B", "T", "M_t", "M_l", "W", "M_t_sem",
             "coupling_iters", "has_bow", "has_hammer", "surface_integral",
-            "gmres", "B_rows", "ld_t", "ld_l")]
+            "gmres", "B_rows", "ld_t", "ld_l", "manufactured", "mms_centered",
+            "coupling_fixed")]
         + [(n, ctypes.c_double) for n in (
             "k", "theta", "lambda_c", "relative_error")]
         + [(n, ctypes.c_void_p) for n in (
             "rows", "f0", "kappa", "alpha", "pos", "t60", "u1", "u2", "z1", "z2",
             "x_b", "v_b", "F_b", "wid", "phi_0", "phi_1", "bmask",
-            "x_H", "w_H", "M_r", "alpha_H", "hmask", "uH1", "uH2",
+            "x_H", "w_H", "M_r", "alpha_H", "hmask", "uH1", "uH2", "p_a",
             "uout", "zout", "u1_out", "u2_out", "z1_out", "z2_out",
             "state_u", "state_z", "v_r", "F_H", "u_H")]
     )
@@ -120,17 +135,12 @@ def pcr_levels(width):
 
 def _consts(*, k, theta_t, lambda_c, M_t, M_l, coupling_iters, surface_integral,
             collect_state, bow, hammer, relative_error, manufactured,
-            coupling_fixed, gmres_rescue, M_t_sem):
-    """Validate the requested specialization; raise for the unported ones."""
-    missing = []
-    if manufactured:
-        missing.append("MMS forcing (ROADMAP Queue 2 item 7)")
-    if coupling_fixed > 0:
-        missing.append("fixed sweep schedule, coupling_fixed>0 "
-                       "(ROADMAP Queue 2 item 3)")
-    if missing:
-        raise NotImplementedError(
-            "string kernel specialization not ported: " + "; ".join(missing))
+            coupling_fixed, gmres_rescue, M_t_sem, mms_centered=False):
+    """Validate the requested specialization.  A fixed schedule has no
+    rescue: the JAX kernel takes its rescue branch only with
+    ``coupling_fixed == 0`` (pallas_step.py:177, :943)."""
+    if coupling_fixed < 0:
+        raise ValueError(f"coupling_fixed must be >= 0, got {coupling_fixed}")
     if coupling_iters < 1:
         raise ValueError(f"coupling_iters must be >= 1, got {coupling_iters}")
     for what, d, keys in (("bow", bow, BOW_KEYS), ("hammer", hammer, HAMMER_KEYS)):
@@ -144,15 +154,18 @@ def _consts(*, k, theta_t, lambda_c, M_t, M_l, coupling_iters, surface_integral,
         surface_integral=bool(surface_integral),
         has_bow=bow is not None, has_hammer=hammer is not None,
         relative_error=float(relative_error),
-        gmres_rescue=bool(gmres_rescue),
+        gmres_rescue=bool(gmres_rescue) and coupling_fixed == 0,
+        manufactured=bool(manufactured), mms_centered=bool(mms_centered),
+        coupling_fixed=int(coupling_fixed),
     )
 
 
-def _excitation(f0, bow, hammer):
+def _excitation(f0, bow, hammer, p_a=None):
     """The excitation inputs as one dict in ``f0``'s dtype: bow signals
     ``(B, T)``, per-string scalars ``(B, 1)``, masks as 0/1 values and the
     initial hammer displacements ``uH1``/``uH2`` (``(B, 1)``; -1e-3 when
-    absent, as the JAX kernel defaults them)."""
+    absent, as the JAX kernel defaults them); with ``p_a``, the MMS
+    amplitude ``(B, 1)``."""
     B = f0.shape[0]
     as_dt = lambda x: torch.as_tensor(x, device=f0.device).to(f0.dtype)
     exc = {}
@@ -173,7 +186,20 @@ def _excitation(f0, bow, hammer):
             x = src.get(key)
             exc[key] = (torch.full((B, 1), -1e-3, dtype=f0.dtype, device=f0.device)
                         if x is None else as_dt(x).reshape(B, 1))
+    if p_a is not None:
+        exc["p_a"] = as_dt(p_a).reshape(B, 1)
     return exc
+
+
+def _mms_amplitude(c, p_a):
+    """``p_a`` when the MMS forcing is on (it must be given then), else
+    None: the forcing's amplitude is an input only of that
+    specialization."""
+    if not c.manufactured:
+        return None
+    if p_a is None:
+        raise ValueError("MMS forcing (manufactured=True) needs the p_a amplitude")
+    return p_a
 
 
 def string_chunked(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
@@ -200,24 +226,27 @@ def string_chunked(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
 
     ``chunk``, ``batch_block`` and ``interpret`` are the TPU kernel's
     tiling and have no effect here: the CUDA kernel loops over all T steps
-    inside one block per string.  ``mms_centered`` matters only to the
-    unported MMS specialization.  ``gmres_m`` is accepted for the JAX
-    signature's sake; the rescue's Krylov dimension is ``GMRES_M``, as in
-    every call the JAX package makes.
+    inside one block per string.  With ``manufactured``, ``p_a (B,)`` is
+    the MMS amplitude and the forcing's time is ``(n - [mms_centered]) k``,
+    ``n`` counting the launch's first step as step 2, as the JAX kernel
+    counts it.  ``gmres_m`` is accepted for the JAX signature's sake; the
+    rescue's Krylov dimension is ``GMRES_M``, as in every call the JAX
+    package makes.
     """
     c = _consts(
         k=k, theta_t=theta_t, lambda_c=lambda_c, M_t=M_t, M_l=M_l,
         coupling_iters=coupling_iters, surface_integral=surface_integral,
         collect_state=collect_state, bow=bow, hammer=hammer,
         relative_error=relative_error, manufactured=manufactured,
-        coupling_fixed=coupling_fixed, gmres_rescue=gmres_rescue,
-        M_t_sem=M_t_sem,
+        mms_centered=mms_centered, coupling_fixed=coupling_fixed,
+        gmres_rescue=gmres_rescue, M_t_sem=M_t_sem,
     )
     args = (f0, kappa, alpha, pos, t60, u1, u2, z1, z2)
+    p_a = _mms_amplitude(c, p_a)
     if f0.is_cuda:
-        return _launch_cuda(c, *args, bow, hammer)
+        return _launch_cuda(c, *args, bow, hammer, p_a)
     if f0.device.type == "cpu":
-        return _reference(c, *args, _excitation(f0, bow, hammer))
+        return _reference(c, *args, _excitation(f0, bow, hammer, p_a))
     raise ValueError(f"string_chunked: unsupported device {f0.device}")
 
 
@@ -231,6 +260,22 @@ def reset_launch_counts():
     string_chunked_bucketed.launches = 0
 
 
+def pluck_chunked(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, **kw):
+    """:func:`string_chunked` with the JAX ``pluck_chunked`` return
+    signature (pallas_step.py:1208-1217): ``(uout, zout, fin)``, ``fin``
+    the final carry ``(u1, u2, z1, z2)`` followed, with ``collect_state``,
+    by ``state_u`` and ``state_z``.  The keyword defaults are
+    ``string_chunked``'s, ``gmres_rescue=True`` among them: on the card it
+    launches the GMRES instance, counted under its name in
+    ``string_chunked.launches_by_spec``."""
+    uout, zout, aux = string_chunked(f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
+                                     **kw)
+    fin = aux["carry"]
+    if kw.get("collect_state", False):
+        fin = fin + (aux["state_u"], aux["state_z"])
+    return uout, zout, fin
+
+
 def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
                              k, theta_t, lambda_c, M_t, M_l, chunk=512,
                              coupling_iters=24, surface_integral=False,
@@ -241,10 +286,10 @@ def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
                              gmres_rescue=True, gmres_m=16, M_t_sem=None):
     """Plain PyTorch version of :func:`string_chunked` on any device.
 
-    Same arguments, results and specialization limits.  Batched tensor ops
-    in the inputs' dtype (float32 or float64), one Python iteration per
-    step and per sweep.  ``aux["sweeps"]`` (T, B) int32 also counts each
-    string's Gauss-Seidel sweeps per step, and with ``gmres_rescue``
+    Same arguments, results and specializations.  Batched tensor ops in the
+    inputs' dtype (float32 or float64), one Python iteration per step and
+    per sweep.  ``aux["sweeps"]`` (T, B) int32 also counts each string's
+    Gauss-Seidel sweeps per step, and with ``gmres_rescue``
     ``aux["gmres_iters"]`` (T, B) its Arnoldi iterations, the work the
     kernel does on the same data.
     """
@@ -253,11 +298,11 @@ def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
         coupling_iters=coupling_iters, surface_integral=surface_integral,
         collect_state=collect_state, bow=bow, hammer=hammer,
         relative_error=relative_error, manufactured=manufactured,
-        coupling_fixed=coupling_fixed, gmres_rescue=gmres_rescue,
-        M_t_sem=M_t_sem,
+        mms_centered=mms_centered, coupling_fixed=coupling_fixed,
+        gmres_rescue=gmres_rescue, M_t_sem=M_t_sem,
     )
     return _reference(c, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
-                      _excitation(f0, bow, hammer))
+                      _excitation(f0, bow, hammer, _mms_amplitude(c, p_a)))
 
 
 # smallest width group: a smaller one merges into the next wider group
@@ -339,15 +384,14 @@ def string_chunked_bucketed(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
     current stream before return; CPU tensors run
     :func:`string_chunked_bucketed_reference`.
     """
-    c, groups = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
     args = (f0, kappa, alpha, pos, t60, u1, u2, z1, z2)
     if f0.is_cuda:
-        out = _launch_cuda(c, *args, kw.get("bow"), kw.get("hammer"),
-                           groups=groups)
+        out = _launch_cuda(c, *args, *exc, groups=groups)
         string_chunked_bucketed.launches += len(groups)
         return out
     if f0.device.type == "cpu":
-        return _bucketed_reference(c, groups, *args, kw.get("bow"), kw.get("hammer"))
+        return _bucketed_reference(c, groups, *args, *exc)
     raise ValueError(f"string_chunked_bucketed: unsupported device {f0.device}")
 
 
@@ -360,9 +404,9 @@ def string_chunked_bucketed_reference(f0, kappa, alpha, pos, t60, u1, u2, z1,
     """Plain PyTorch version of :func:`string_chunked_bucketed` on any
     device: :func:`_reference` per group at the group's width, scattered
     back into the batch."""
-    c, groups = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
     return _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2,
-                               z1, z2, kw.get("bow"), kw.get("hammer"))
+                               z1, z2, *exc)
 
 
 def string_chunked_rerun(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *, rows,
@@ -379,16 +423,14 @@ def string_chunked_rerun(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *, rows,
     ``gmres_rescue``, ``aux["gmres_iters"]`` is added on the CPU.  Returns
     ``out``.
     """
-    c, groups = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw)
+    c, groups, exc = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw)
     args = (f0, kappa, alpha, pos, t60, u1, u2, z1, z2)
     if not groups:
         return out
     if f0.is_cuda:
-        return _launch_cuda(c, *args, kw.get("bow"), kw.get("hammer"),
-                            groups=groups, out=out)
+        return _launch_cuda(c, *args, *exc, groups=groups, out=out)
     if f0.device.type == "cpu":
-        return _bucketed_reference(c, groups, *args, kw.get("bow"), kw.get("hammer"),
-                                   out=out)
+        return _bucketed_reference(c, groups, *args, *exc, out=out)
     raise ValueError(f"string_chunked_rerun: unsupported device {f0.device}")
 
 
@@ -397,30 +439,32 @@ def string_chunked_rerun_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
     """Plain PyTorch version of :func:`string_chunked_rerun` on any device:
     :func:`_reference` per group that holds a row of ``rows``, at the
     group's width, written in place into ``out``."""
-    c, groups = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw)
+    c, groups, exc = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw)
     if not groups:
         return out
     return _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2, z1,
-                               z2, kw.get("bow"), kw.get("hammer"), out=out)
+                               z2, *exc, out=out)
 
 
 def _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw):
-    """The constants and the width groups of a re-run: the whole batch's
-    groups, each cut to its rows in ``rows``, the empty ones dropped."""
-    c, groups = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    """:func:`_bucketing` of a re-run: the whole batch's groups, each cut to
+    its rows in ``rows``, the empty ones dropped."""
+    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
     rows = np.asarray(rows, np.int64)
     groups = [(w, np.intersect1d(g, rows)) for w, g in groups]
-    return c, [(w, g) for w, g in groups if len(g)]
+    return c, [(w, g) for w, g in groups if len(g)], exc
 
 
 def _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw):
-    """The validated constants and the width groups of a bucketed call."""
+    """The validated constants, the width groups of a bucketed call and its
+    ``(bow, hammer, p_a)`` inputs."""
     c = _consts(M_t=M_t, M_l=M_l, M_t_sem=None, **_kernel_kw(kw))
     if host_bounds is None:
         host_bounds = (f0.amin(dim=1).cpu().numpy(), kappa.cpu().numpy(),
                        alpha.cpu().numpy())
-    return c, bucket_groups(*host_bounds, k=c.k, theta_t=c.theta_t,
-                            lambda_c=c.lambda_c, M_t=M_t, M_l=M_l)
+    groups = bucket_groups(*host_bounds, k=c.k, theta_t=c.theta_t,
+                           lambda_c=c.lambda_c, M_t=M_t, M_l=M_l)
+    return c, groups, (kw.get("bow"), kw.get("hammer"), _mms_amplitude(c, kw.get("p_a")))
 
 
 def _kernel_kw(kw):
@@ -429,10 +473,9 @@ def _kernel_kw(kw):
         raise ValueError("the bucketed launch sets M_t_sem itself")
     defaults = dict(coupling_iters=24, surface_integral=False,
                     collect_state=False, bow=None, hammer=None,
-                    relative_error=4.0, manufactured=False, coupling_fixed=0,
-                    gmres_rescue=True)
-    tiling = {"chunk", "interpret", "batch_block", "mms_centered", "p_a",
-              "gmres_m", "M_t_sem"}
+                    relative_error=4.0, manufactured=False, mms_centered=False,
+                    coupling_fixed=0, gmres_rescue=True)
+    tiling = {"chunk", "interpret", "batch_block", "p_a", "gmres_m", "M_t_sem"}
     unknown = set(kw) - set(defaults) - tiling - {"k", "theta_t", "lambda_c"}
     if unknown:
         raise TypeError(f"unexpected keyword arguments {sorted(unknown)}")
@@ -444,19 +487,19 @@ def _kernel_kw(kw):
 
 @torch.inference_mode()
 def _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
-                        bow, hammer, out=None):
+                        bow, hammer, p_a, out=None):
     """:func:`_reference` per group, scattered into the batch's arrays:
     new ones, or those of ``out`` (``(uout, zout, aux)``) in place."""
     B, T = f0.shape
     dt, dev = f0.dtype, f0.device
-    exc = _excitation(f0, bow, hammer)
+    exc = _excitation(f0, bow, hammer, p_a)
     full = lambda *shape: torch.zeros(shape, dtype=dt, device=dev)
     counts = lambda: torch.zeros((T, B), dtype=torch.int32, device=dev)
     if out is None:
         uout, zout = full(B, T), full(B, T)
         carry = [full(B, c.M_t), full(B, c.M_t), full(B, c.M_l), full(B, c.M_l)]
         aux = {"sweeps": counts()}
-        if exc:
+        if c.has_bow or c.has_hammer:
             aux.update({key: full(B, T) for key in ("v_r", "F_H", "u_H")})
         if c.collect_state:
             aux["state_u"], aux["state_z"] = full(T, B, c.M_t), full(T, B, c.M_l)
@@ -504,6 +547,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
     inner_eps = 100.0 * float(torch.finfo(dt).eps)
     two_t = 2.0 * theta - 1.0
     has_exc = c.has_bow or c.has_hammer
+    p_a = exc.get("p_a")
 
     def pad(x, M):
         return torch.nn.functional.pad(x, (0, W - M))
@@ -656,6 +700,24 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
         B4z1 = -2.0 * z1 - gamma_k * (alpha * alpha) * st.dxx(z1, h_l)
         C4z2 = (1.0 - 2.0 * sig0 * k) * z2 + 2.0 * sig1 * k * st.dxx(z2, h_l)
         rhs_z = B4z1 + C4z2 + K_lt_from(iu2)
+        if c.manufactured:
+            # manufactured-solution forcing (pallas_step.py:392-412, engine
+            # ``mms_forcing``): sigma == sig0, omega == gamma, mu == pi; u at
+            # its grid's x in [-1/2, 1/2], z at the constant x = 1/2
+            t_now = (t + 2 - (1 if c.mms_centered else 0)) * torch.ones(
+                (), dtype=dt, device=dev) * k
+
+            def mms(x):
+                c1 = (sig0 * sig0 - gamma * gamma - 2.0 * sig0 * sig0) * torch.cos(
+                    math.pi * x) ** 2
+                c2 = (2.0 * math.pi**2 * (4.0 * KK * math.pi**2 + gamma * gamma)
+                      * torch.cos(2.0 * math.pi * x))
+                return (p_a * (c1 + c2) * torch.cos(gamma * t_now)
+                        * torch.exp(-sig0 * t_now))
+
+            x_u = (torch.clamp(2.0 * itf / N_t, 0.0, 2.0) - 1.0) / 2.0
+            rhs_u0 = rhs_u0 - mms(x_u) * k**2
+            rhs_z = rhs_z - mms(torch.full_like(itf, 0.5)) * k**2
         z_keep = torch.minimum(
             torch.clamp(N_t + N_l + 2.0 - c.M_t_sem, min=0.0), n_l)
         rhs_z = rhs_z * (itf < z_keep).to(dt)
@@ -735,7 +797,8 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
             return u_fix, z_sol, probes, iters
 
         # ---- adaptive damped block Gauss-Seidel (pallas_step.py:505-578),
-        # each string frozen once it has exited
+        # each string frozen once it has exited; or exactly coupling_fixed
+        # plain sweeps (:517-519, :562-570)
         u_c, z_c = u1, z1
         omega = torch.ones((B, 1), dtype=dt, device=dev)
         prev = torch.full((B, 1), math.inf, dtype=dt, device=dev)
@@ -747,7 +810,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
             v_rel = F_H = u_H = zero
         else:
             rhs_u = rhs_u0 * live_t  # iterate-independent: built once
-        for sweep in range(c.coupling_iters):
+        for sweep in range(c.coupling_fixed or c.coupling_iters):
             if has_exc:
                 rhs_u, v_rel_s, F_H_s, u_H_s = exc_rhs(u_c, sweep == 0)
                 v_rel = torch.where(active, v_rel_s, v_rel)
@@ -759,6 +822,10 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
             iu = interp(lam * st.dxb(u_g, h_t), tl)
             z_g = pcr_normalized(sub_l, diag_l, sup_l, -rhs_z - K_lt_from(iu),
                                  levels)
+            sweeps[t] += active[:, 0]
+            if c.coupling_fixed:
+                u_c, z_c = u_g, z_g
+                continue
             u_c2 = u_c + omega * (u_g - u_c)
             z_c2 = z_c + omega * (z_g - z_c)
             delta = (torch.amax(torch.abs(u_g - u_c), dim=1, keepdim=True)
@@ -774,7 +841,6 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
             prev = torch.where(active, delta, prev)
             hopeless = torch.where(active, hop, hopeless)
             scale_u = torch.where(active, scale_b, scale_u)
-            sweeps[t] += active[:, 0]
             active = active & (delta > inner_eps * scale_b) & ~hop
             if not bool(active.any()):
                 break
@@ -783,7 +849,9 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
         # or above tolerance at the sweep cap; poisoned, or with the GMRES
         # rescue solved again exactly (:732-764)
         bad = hopeless | ~(prev < math.inf) | (prev > inner_eps * scale_u)
-        if not c.gmres_rescue:
+        if c.coupling_fixed:  # no exit test: nothing is untrusted
+            u_n, z_n = u_c, z_c
+        elif not c.gmres_rescue:
             u_n = torch.where(bad, torch.full_like(u_c, math.nan), u_c)
             z_n = z_c
         elif bool(bad.any()):
@@ -950,7 +1018,7 @@ def _hammer_fixed_point(uH1, uH2, eta0, eta_1, eta_2, f_pow, eps_u, hmask,
 
 
 def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
-                 bow, hammer, groups=None, out=None):
+                 bow, hammer, p_a=None, groups=None, out=None):
     """Check the inputs, allocate the outputs (or take those of ``out``, a
     whole-batch ``(uout, zout, aux)``, and write in place) and launch
     ``string_step``: once over the batch, or once per width group ``(W_g,
@@ -958,6 +1026,15 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
     current stream before the outputs are returned."""
     from . import build
 
+    if (c.manufactured or c.coupling_fixed) and (c.has_bow or c.has_hammer):
+        raise NotImplementedError(
+            "the CUDA string kernel has MMS and fixed-schedule instances for "
+            "plucked strings only (no path runs them with a bow or a hammer); "
+            "the plain version (CPU tensors) runs every combination")
+    if c.manufactured and c.coupling_fixed:
+        raise NotImplementedError(
+            "the CUDA string kernel has no instance with both the MMS forcing "
+            "and the fixed schedule (no path runs them together)")
     B, T = f0.shape
     W = padded_width(c.M_t, c.M_l)
     shapes = {
@@ -975,6 +1052,10 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
                     raise ValueError(f"{what}['mask'] must be ({B},) on {f0.device}")
                 continue
             shapes[f"{what}[{key!r}]"] = (x, shape)
+    if p_a is not None:
+        if not torch.is_tensor(p_a):
+            raise TypeError(f"p_a must be a tensor on {f0.device}")
+        shapes["p_a"] = (p_a, (B,))
     for name, (x, shape) in shapes.items():
         if x.device != f0.device:
             raise ValueError(f"{name} is on {x.device}, f0 on {f0.device}")
@@ -1012,7 +1093,7 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
             out["state_z"] = alloc((T, B, c.M_l), **opts)
     else:
         out = _outputs_in_place(c, B, T, f0.device, out)
-    exc = _excitation(f0, bow, hammer)  # views, masks as 0/1 floats
+    exc = _excitation(f0, bow, hammer, p_a)  # views, masks as 0/1 floats
     ptrs = dict(f0=f0, kappa=kappa, alpha=alpha, pos=pos,
                 t60=t60.reshape(B, 4),  # (freq1, time1, freq2, time2)
                 u1=u1, u2=u2, z1=z1, z2=z2, **exc, **out)
@@ -1020,7 +1101,8 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
         struct_size=ctypes.sizeof(_LaunchArgs), T=T, M_t_sem=c.M_t_sem,
         coupling_iters=c.coupling_iters, has_bow=c.has_bow,
         has_hammer=c.has_hammer, surface_integral=c.surface_integral,
-        gmres=c.gmres_rescue,
+        gmres=c.gmres_rescue, manufactured=c.manufactured,
+        mms_centered=c.mms_centered, coupling_fixed=c.coupling_fixed,
         B_rows=B, ld_t=c.M_t, ld_l=c.M_l, k=c.k, theta=c.theta_t,
         lambda_c=c.lambda_c, relative_error=c.relative_error,
         **{name: x.data_ptr() for name, x in ptrs.items()},

@@ -21,6 +21,14 @@ the width-bucketed string kernel over all steps
   every float64 run) is post-processed on the host from each item's
   native-width state.
 
+A float64 run (``task.precision=double``: the verification experiments
+``linear-string`` and ``nonlinear-string`` by default) takes the scan
+engine (``core/engine.py``) on the CPU in chunks of ``task.chunk_length``,
+as the JAX package runs every float64 run, and with
+``task.write_during_process`` rewrites each string's
+``{save_dir}/{it}/{sr}-{b}/output{-u,-z,}.wav`` after every chunk; the
+string kernel's route ignores that option, as the JAX kernel route does.
+
 With ``task.rescue_nan`` (the default; ``experiment=nsynth-like`` turns
 it off) a single-precision run takes the NaN rescue ladder: the strings
 the first pass poisons run again through the kernel's GMRES instance,
@@ -35,11 +43,11 @@ each stage saved, the NaN and silence skips) and the timing log
 ``skip_stats.json`` also carries the writer phases' times and the
 device-to-host bytes.
 
-The device is chosen explicitly: the CPU, where the kernel's plain PyTorch
-version runs, for ``proc.cpu=true`` or ``task.precision=double``; CUDA
-otherwise, and a host without a usable card raises.  Not ported yet, and
-refused with ``NotImplementedError``: MMS forcing, preset loading, plots
-and writing during the process (see ROADMAP.md).
+The device is chosen explicitly: the CPU for ``proc.cpu=true`` (where a
+single-precision run takes the kernel's plain PyTorch version) or
+``task.precision=double`` (the engine); CUDA otherwise, and a host without
+a usable card raises.  Not ported yet, and refused with
+``NotImplementedError``: preset loading and plots (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -121,6 +129,9 @@ def kernel_inputs(state, consts: SimConsts, Nt, device, bow=None, hammer=None,
         collect_state=consts.collect_state,
         relative_error=consts.relative_error,
         manufactured=consts.manufactured, mms_centered=consts.mms_centered,
+        # the MMS forcing's amplitude, in the run's dtype (the JAX
+        # _process_pallas passes it the same way)
+        p_a=sp.p_a if consts.manufactured else None,
         # poison-only first pass: untrusted coupling exits become NaN
         gmres_rescue=False,
     )
@@ -290,9 +301,12 @@ POSTPROC_G = 32
 
 
 def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
-            device, sr=48000, postproc_keep=None, stats=None, kernel_gmres=None):
+            device, sr=48000, postproc_keep=None, stats=None, kernel_gmres=None,
+            chunk_size=None, save_path=None):
     """Run one batch through the width-bucketed string kernel (steps
-    2..Nt-1).
+    2..Nt-1), or a float64 batch through the scan engine
+    (:func:`process_engine`, in chunks of ``chunk_size`` samples, writing
+    the readout wavs under ``save_path`` after each chunk when it is set).
 
     Returns ``(uout, zout, state_u, state_z, v_r, F_H, u_H, sig0, sig1)``.
     Without ``postproc_keep`` every array is numpy and the state fields are
@@ -312,6 +326,10 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
     pass's ``(B,)`` NaN flags go to ``kernel_gmres["nan_first_pass"]``.
     """
     stats = stats or RunStats()
+    if state.u0.dtype == np.float64:
+        return _process_double(state, bow, hammer, bow_mask, hammer_mask, consts,
+                               Nt, chunk_size or Nt, device, sr, postproc_keep,
+                               stats, save_path)
     args, kwargs = kernel_inputs(state, consts, Nt, device, bow, hammer,
                                  bow_mask, hammer_mask)
     # host copies of the draws for the bucketing bounds
@@ -392,15 +410,42 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
             v_r, F_H, u_H, sig0, sig1)
 
 
+def _process_double(state, bow, hammer, bow_mask, hammer_mask, consts, Nt,
+                    chunk_size, device, sr, postproc_keep, stats, save_path):
+    """:func:`process` of a float64 batch: the scan engine, as the JAX
+    package runs every float64 run.  A fused run gets its readouts as
+    tensors and its state as a :class:`_DeviceState` with no device
+    post-processing: every item takes the host build."""
+    out = process_engine(state, bow, hammer, bow_mask, hammer_mask, consts, Nt,
+                         chunk_size, device, collect_state=consts.collect_state,
+                         save_path=save_path, sr=sr)
+    stats.count(sum(x.nbytes for x in out if isinstance(x, np.ndarray)))
+    if postproc_keep is None:
+        return out
+    uout, zout, state_u, state_z, v_r, F_H, u_H, sig0, sig1 = out
+    stats.state_bytes += state_u.nbytes + state_z.nbytes
+    u1_h, u2_h = fdm.initialize_state_rows(state.u0, state.v0, consts.k)
+    body = torch.from_numpy(state_u[:, 2:]).transpose(0, 1)  # (T, B, M)
+    handle = _DeviceState(body, u1_h, u2_h, None, stats)
+    return (torch.from_numpy(uout), torch.from_numpy(zout), handle, None,
+            v_r, F_H, u_H, sig0, sig1)
+
+
 def process_engine(state, bow, hammer, bow_mask, hammer_mask,
-                   consts: SimConsts, Nt, chunk_size, device, collect_state=True):
+                   consts: SimConsts, Nt, chunk_size, device, collect_state=True,
+                   save_path=None, sr=48000):
     """One batch through the scan engine (``core/engine.py``), the JAX
     ``process`` engine branch: steps 2..Nt-1 in chunks of ``chunk_size - 2``
     steps (the reference's 2-sample overlap, simulate.py:57-107, which the
     carry implements), in the draws' dtype, on ``device``.  Returns numpy
     ``(uout, zout, state_u, state_z, v_r, F_H, u_H, sig0, sig1)``, the state
     fields ``(B, Nt, M)`` with the two initial rows first (``None`` without
-    ``collect_state``)."""
+    ``collect_state``).
+
+    With ``save_path``, every string not NaN so far has its readouts up to
+    the chunk's end written to ``{save_path}-{b}/output{-u,-z,}.wav``
+    (PCM_16, not normalized) after each chunk, as the JAX package writes
+    them with ``task.write_during_process``."""
     dtype = torch.float64 if state.u0.dtype == np.float64 else torch.float32
     np_dt = np.float64 if dtype == torch.float64 else np.float32
     to = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
@@ -426,6 +471,9 @@ def process_engine(state, bow, hammer, bow_mask, hammer_mask,
         carry, out = simulate_chunk(carry, range(cs, ce), sp, bp, hp, bmask, hmask,
                                     consts)
         outs.append({key: v.cpu().numpy() for key, v in out.items()})
+        if save_path is not None:
+            _write_readouts(save_path, [o["uout"] for o in outs],
+                            [o["zout"] for o in outs], sr)
     cat = lambda key: np.concatenate([o[key] for o in outs], axis=0).T  # (B, T)
     sig0, sig1 = outs[-1]["sig0"][-1], outs[-1]["sig1"][-1]
     state_u = state_z = None
@@ -439,6 +487,22 @@ def process_engine(state, bow, hammer, bow_mask, hammer_mask,
     # the reference divides u_H by k on return (simulator.cpp:57)
     return (cat("uout"), cat("zout"), state_u, state_z, cat("v_r"), cat("F_H"),
             cat("u_H") / consts.k, sig0, sig1)
+
+
+def _write_readouts(save_path, uout_chunks, zout_chunks, sr):
+    """The readouts so far, ``(T, B)`` chunks, as each non-NaN string's
+    ``{save_path}-{b}/output{-u,-z,}.wav``."""
+    uout = np.concatenate(uout_chunks, axis=0).T  # (B, T)
+    zout = np.concatenate(zout_chunks, axis=0).T
+    nan_b = np.isnan(uout.sum(-1))
+    for b in range(uout.shape[0]):
+        if nan_b[b]:
+            continue
+        d = f"{save_path}-{b}"
+        os.makedirs(d, exist_ok=True)
+        wavio.write(f"{d}/output-u.wav", uout[b], sr, "PCM_16")
+        wavio.write(f"{d}/output-z.wav", zout[b], sr, "PCM_16")
+        wavio.write(f"{d}/output.wav", uout[b] + zout[b], sr, "PCM_16")
 
 
 def _slice_batch(obj, idx, B, cast_f64=False):
@@ -541,8 +605,11 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
              hammer_kwargs=None, bow_kwargs=None, precision="single",
              relative_order=4, surface_integral=False, randomize_each="batch",
              manufactured=False, rng=None, collect_state=True,
-             postproc_keep=None, stats=None, kernel_gmres=None):
+             postproc_keep=None, stats=None, kernel_gmres=None,
+             chunk_length=-1, save_path=None):
     """Draw one batch and simulate it (reference simulate.py:121-217).
+    ``chunk_length`` (seconds, -1 for the whole run) and ``save_path`` are
+    the float64 engine's chunking and its ``write_during_process`` target.
 
     Returns ``(results, (string, bow, hammer, [k, theta_t, lambda_c],
     consts), (bow_mask, hammer_mask, pluck_mask), device)``; ``results`` as
@@ -562,10 +629,13 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
         manufactured=manufactured, collect_state=collect_state,
     )
     device = select_device(cpu, precision)
+    total_size = int(length * sr)
+    chunk_size = max(total_size if chunk_length < 0 else int(chunk_length * sr), 3)
     results = process(string, bow, hammer, bow_mask, hammer_mask, consts,
-                      int(length * sr), device, sr=sr,
+                      total_size, device, sr=sr,
                       postproc_keep=postproc_keep, stats=stats,
-                      kernel_gmres=kernel_gmres)
+                      kernel_gmres=kernel_gmres, chunk_size=chunk_size,
+                      save_path=save_path)
     k = 1.0 / sr
     return (results, (string, bow, hammer, [k, theta_t, lambda_c], consts),
             (bow_mask, hammer_mask, pluck_mask), device)
@@ -698,9 +768,6 @@ def run(args, save_dir, model_name, n_samples):
     sr = task.sr
     if task.plot or task.plot_state:
         _not_ported("plots (task.plot / task.plot_state)", "Queue 1 item 12")
-    if task.write_during_process:
-        _not_ported("writing during the process (task.write_during_process)",
-                    "Queue 1 item 2")
     kw = task_kwargs(task)
     theta_t = kw.pop("theta_t")
 
@@ -842,6 +909,9 @@ def run(args, save_dir, model_name, n_samples):
                 keep_it = np.arange(int(x_off_rng.integers(fuse_stride)),
                                     fuse_Nx, fuse_stride)
 
+            # the float64 engine's wavs after every chunk; the kernel's route
+            # ignores it, as the JAX kernel route does
+            save_path = f"{save_dir}/{dx}/{sr}" if task.write_during_process else None
             st = time.time()
             ladder = {} if kernel_gmres_on else None
             results, params_out, masks, device = simulate(
@@ -854,7 +924,8 @@ def run(args, save_dir, model_name, n_samples):
                 manufactured=task.manufactured, rng=rng,
                 collect_state=collect_state,
                 postproc_keep=(keep_it, fuse_Nx) if fuse else None,
-                stats=stats, kernel_gmres=ladder, **kw,
+                stats=stats, kernel_gmres=ladder, chunk_length=task.chunk_length,
+                save_path=save_path, **kw,
             )
             proc_time = time.time() - st
             time_log.append(proc_time)
