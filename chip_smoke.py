@@ -96,11 +96,18 @@ one for the bucketed launch, one per GMRES instance the main paths launched
 (``pluck_chunked`` launches ``pluck-gmres``); the last line is ``{"ok":
 true, "device": {...}}``.
 
-``--ab`` times phase 3's (a)-(j) and the bucketed (k)-(m) in each checkout
+``--ab`` runs phase 3's draws (a)-(m), the GMRES instance at
+``coupling_iters=1`` on draws (a) and (e) as (n) and (p) and at the
+strong-coupling corner as (o), the MMS twin at 48 kHz as (s), two fixed
+sweeps on draw (a) as (t), ``pluck_chunked`` on draw (a) as (u) and the
+bench workload at B=256 (more strings than SMs) as (v), in each checkout
 given (a directory holding the repository, e.g. an unpacked ``git archive``
-of another commit), each in a process of its own with that checkout's
-inputs and kernel, CUDA events over 20 launches of 256 steps: one line per
-checkout with the times in ms and the card's name and power limit.  Give
+of another commit), each in a process of its own with that checkout's inputs
+and kernel: CUDA events over 20 calls of 256 steps, one line per checkout
+with the times in ms, the card's name and power limit and the checkout's
+ptxas report. Each process saves every output field of every case; the
+outputs of every checkout are then held bit for bit to the first's, the
+largest difference per case printed, and any difference exits non-zero. Give
 two commits in turns (old, new, new, old) to compare them on one card.
 """
 
@@ -921,9 +928,12 @@ def check_mms_gmres(tag, inputs, card):
     ms = cuda_ms(lambda: sk.string_chunked(*args, **kwargs), reps=3)
     iters = ref[2]["gmres_iters"]
     bound_ms, bound_by = bound(args, kwargs, ref[2]["sweeps"], iters)
+    rescued = iters > 0
     print(f"[3] {tag}: per 256 steps kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
           f"{bound_ms:.5f} ms ({bound_by}); string-steps through GMRES "
-          f"{int((iters > 0).sum())} of {iters.numel()} [{card}]")
+          f"{int(rescued.sum())} of {iters.numel()}, Arnoldi iterations of the plain "
+          f"version {int(iters.sum())} (mean "
+          f"{float(iters[rescued].float().mean()) if rescued.any() else 0.0:.2f}) [{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -1233,9 +1243,54 @@ def add_gmres(acc, by_spec):
             acc[spec] = acc.get(spec, 0) + n
 
 
-def ab_times(root):
-    """``--ab``'s timing of one checkout, in a process of its own: the
-    checkout's own chip_smoke inputs and string kernel."""
+# --ab's cases: (tag, draw, overrides, call).  Each draw comes from an input
+# function that the checkouts' own chip_smoke.py has had since the option
+# came in (ab_inputs); call is "flat" (string_chunked), "bucketed" or
+# "pluck_chunked"
+AB_CASES = (
+    ("a", "bench", {}, "flat"), ("b", "nsynth", {}, "flat"),
+    ("c", "bow", {}, "flat"), ("d", "hammer", {}, "flat"), ("e", "mix", {}, "flat"),
+    ("f", "bench_pickup", {}, "flat"), ("g", "bow_pickup", {}, "flat"),
+    ("h", "hammer_pickup", {}, "flat"), ("i", "mix_pickup", {}, "flat"),
+    ("j", "pickup4", {}, "flat"),
+    ("k", "fused", {}, "bucketed"), ("l", "corpus", {}, "bucketed"),
+    ("m", "corpus_mix", {}, "bucketed"),
+    ("n", "bench", dict(gmres_rescue=True, coupling_iters=1), "flat"),
+    ("o", "strong", {}, "flat"),
+    ("p", "mix", dict(gmres_rescue=True, coupling_iters=1), "flat"),
+    ("s", "mms", {}, "flat"),
+    ("t", "bench", dict(coupling_fixed=2), "flat"),
+    ("u", "bench", {}, "pluck_chunked"),
+    ("v", "bench256", {}, "flat"),
+)
+
+
+def ab_inputs(cs, name, dev):
+    """One of AB_CASES' draws through a checkout's chip_smoke module."""
+    if name == "bench256":  # the bench workload at the time sweep's largest batch
+        return cs.bench_inputs(256, 0.02, 7, dev)
+    if name.startswith("bench"):
+        return cs.bench_inputs(4, 0.02, 7, dev, surface_integral=name == "bench")
+    if name == "strong":
+        return cs.strong_inputs(256, dev)
+    if name == "mms":  # the twin's string
+        return cs.mms_inputs([220.0], 48000, 256, [0.01], dev)[0]
+    over = {"nsynth": [], "bow": cs.BOW16, "hammer": cs.HAMMER, "mix": cs.MIX}
+    for key, extra in list(over.items()):
+        over[key + "_pickup"] = extra + cs.PICKUP
+    if name in over:
+        return cs.nsynth_inputs(cs.NSYNTH + over[name], dev)
+    return cs.nsynth_inputs({"pickup4": cs.PICKUP4, "fused": cs.FUSED,
+                             "corpus": cs.CORPUS48,
+                             "corpus_mix": cs.CORPUS48 + cs.MIX}[name], dev)
+
+
+def ab_times(root, out_path):
+    """``--ab``'s run of one checkout, in a process of its own: the
+    checkout's own chip_smoke inputs and string kernel.  Times every case
+    of AB_CASES (CUDA events over 20 calls of 256 steps), saves every
+    output field of each case to ``out_path`` (npz, ``tag/field``) and
+    prints one line of times and the checkout's ptxas report."""
     sys.path.insert(0, root)
     os.chdir(root)
     import chip_smoke as cs
@@ -1244,24 +1299,64 @@ def ab_times(root):
 
     dev = torch.device("cuda")
     build.load_kernel_library("string_step")
-    inputs = {
-        "a": cs.bench_inputs(4, 0.02, 7, dev), "b": cs.nsynth_inputs(cs.NSYNTH, dev),
-        "c": cs.nsynth_inputs(cs.NSYNTH + cs.BOW16, dev),
-        "d": cs.nsynth_inputs(cs.NSYNTH + cs.HAMMER, dev),
-        "e": cs.nsynth_inputs(cs.NSYNTH + cs.MIX, dev), "j": cs.nsynth_inputs(cs.PICKUP4, dev),
-        "k": cs.nsynth_inputs(cs.FUSED, dev), "l": cs.nsynth_inputs(cs.CORPUS48, dev),
-        "m": cs.nsynth_inputs(cs.CORPUS48 + cs.MIX, dev),
-    }
-    out = {}
-    for tag, (args, kw) in inputs.items():
-        args, kw = cs.truncate((args, kw), 256)
-        if tag in "klm":
+    report = {name: " | ".join(lines)
+              for name, lines in ptxas_report(build.build_log.get("string_step", "")).items()}
+    times, saved = {}, {}
+    for tag, name, over, call in AB_CASES:
+        args, kw = cs.truncate(ab_inputs(cs, name, dev), 256)
+        kw = dict(kw, **over)
+        if call == "bucketed":
             hb = cs.host_bounds(args)
             fn = lambda: sk.string_chunked_bucketed(*args, host_bounds=hb, **kw)
+        elif call == "pluck_chunked":
+            kw.pop("gmres_rescue")
+            fn = lambda: sk.pluck_chunked(*args, **kw)
         else:
             fn = lambda: sk.string_chunked(*args, **kw)
-        out[tag] = cs.cuda_ms(fn, reps=20)
-    print(f"[ab] {root}: {json.dumps(out)} [{cs.smi()}]", flush=True)
+        out = fn()
+        if call == "pluck_chunked":
+            fields = dict(zip(("uout", "zout", "u1", "u2", "z1", "z2", "state_u", "state_z"),
+                              (out[0], out[1]) + tuple(out[2])))
+        else:
+            fields = dict(named_fields(out))
+        for key, x in fields.items():
+            saved[f"{tag}/{key}"] = x.cpu().numpy()
+        times[tag] = cs.cuda_ms(fn, reps=20)
+    np.savez(out_path, **saved)
+    print(f"[ab] {root}: {json.dumps(times)} [{cs.smi()}]", flush=True)
+    print(f"[ab] {root} ptxas: {json.dumps(report)}", flush=True)
+
+
+def ab_compare(roots, paths):
+    """Every checkout's saved outputs against the first's, bit for bit:
+    the largest difference per case and the count of differing words.
+    Returns False on any difference."""
+    ref = np.load(paths[0])
+    same = True
+    for root, path in zip(roots[1:], paths[1:]):
+        got = np.load(path)
+        if sorted(got.files) != sorted(ref.files):
+            print(f"[ab] {root}: fields {sorted(set(got.files) ^ set(ref.files))} on "
+                  "one side only")
+            same = False
+            continue
+        worst = {}
+        for key in ref.files:
+            a, b = ref[key], got[key]
+            if a.shape != b.shape:
+                print(f"[ab] {root} {key}: shape {b.shape} against {a.shape}")
+                same = False
+                continue
+            bits = int(np.count_nonzero(a.view(np.uint32) != b.view(np.uint32)))
+            fin = np.isfinite(a) & np.isfinite(b)
+            diff = float(np.abs(a[fin].astype(np.float64) - b[fin]).max(initial=0.0))
+            tag = key.split("/")[0]
+            w = worst.setdefault(tag, [0.0, 0])
+            w[0], w[1] = max(w[0], diff), w[1] + bits
+        print(f"[ab] {root} against {roots[0]}: largest difference per case "
+              + ", ".join(f"({t}) {d:.3e} [{n} words differ]" for t, (d, n) in worst.items()))
+        same = same and all(n == 0 for _, n in worst.values())
+    return same
 
 
 def main():
@@ -1269,13 +1364,23 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--ab-one"]:
-        ab_times(os.path.abspath(sys.argv[2]))
+        ab_times(os.path.abspath(sys.argv[2]), sys.argv[3])
         return 0
     if sys.argv[1:2] == ["--ab"]:
-        for root in sys.argv[2:]:
-            # this file by path, so that each checkout's own package is imported
-            subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-one",
-                            os.path.abspath(root)], check=True, cwd=os.path.abspath(root))
+        import tempfile
+
+        roots = [os.path.abspath(r) for r in sys.argv[2:]]
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = [os.path.join(tmp, f"ab{n}.npz") for n in range(len(roots))]
+            for root, path in zip(roots, paths):
+                # this file by path, so that each checkout's own package is
+                # imported; a failed build or launch fails the whole call
+                subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-one",
+                                root, path], check=True, cwd=root)
+            if not ab_compare(roots, paths):
+                print("[ab] the checkouts' outputs differ", file=sys.stderr)
+                return 1
+        print("[ab] every saved output equal bit for bit across the checkouts")
         return 0
     from torch_fdtd_string_tpu_torch.ops import build
     from torch_fdtd_string_tpu_torch.ops import string_kernel as sk

@@ -146,3 +146,58 @@ def test_mms_amplitude_through_the_bucketed_launch():
         assert err < 0.02, (b, err)
     with pytest.raises(ValueError, match="p_a"):
         sk.string_chunked_bucketed(*tensors, **kw)
+
+
+def _linear_string_draw(precision, T):
+    """linear-string's own first draw (its composed config, seed proc.seed)
+    at ``precision``: one string, M_t 283 / M_l 437, relative_error 8, the
+    forcing at the uncentered time level; ``string_chunked``'s CPU args and
+    kwargs over its first ``T`` steps."""
+    from torch_fdtd_string_tpu_torch.run import CONFIG_DIR
+    from torch_fdtd_string_tpu_torch.tasks import simulate as tsim
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    args = compose(CONFIG_DIR, ["experiment=linear-string", f"task.precision={precision}",
+                                "task.plot=false", "task.plot_state=false"])
+    task = args.task
+    kw = tsim.task_kwargs(task)
+    theta = kw.pop("theta_t")
+    string, _, _, bm, hm, _ = tsim.draw_params(
+        "pluck", task.sr, theta, task.length, task.batch_size, task.f0_inf,
+        task.alpha_inf, task.lambda_c, precision=task.precision,
+        randomize_each=task.randomize_each, manufactured=task.manufactured,
+        rng=np.random.default_rng(args.proc.seed), **kw)
+    consts = tsim.sim_consts(string, bm, hm, task.sr, theta, task.lambda_c,
+                             relative_order=task.relative_order,
+                             surface_integral=task.surface_integral,
+                             manufactured=task.manufactured, collect_state=True)
+    fa, fkw = tsim.kernel_inputs(string, consts, int(task.length * task.sr),
+                                 torch.device("cpu"))
+    return (fa[0][:, :T].contiguous(),) + fa[1:], fkw
+
+
+def test_plain_mms_gmres_matches_jax_kernel_at_linear_string():
+    """The MMS GMRES instance's plain version against the JAX kernel in
+    interpret mode (batch_block=1) at linear-string's own draw in its
+    configured float64, with coupling_iters=1, so that every step goes
+    through GMRES: every field within 1e-9 of its scale over 8 steps."""
+    import jax.numpy as jnp
+
+    T = 8
+    args, kw = _linear_string_draw("double", T)
+    assert (kw["M_t"], kw["M_l"], kw["relative_error"]) == (283, 437, 8.0)
+    assert kw["manufactured"] and not kw["mms_centered"]
+    kw = dict(kw, gmres_rescue=True, coupling_iters=1)
+    uout, zout, aux = sk.string_chunked(*args, **kw)
+    assert (aux["gmres_iters"] > 0).all()
+    p_a = jnp.asarray(kw.pop("p_a").numpy())
+    ju, jz, jaux = jax_string_chunked(*(jnp.asarray(a.numpy()) for a in args), chunk=T,
+                                      batch_block=1, interpret=True, p_a=p_a, **kw)
+    pairs = [("uout", uout, ju), ("zout", zout, jz),
+             ("state_u", aux["state_u"], jaux["state_u"]),
+             ("state_z", aux["state_z"], jaux["state_z"])]
+    for name, g, w in pairs:
+        g, w = g.numpy(), np.asarray(w)[..., : g.shape[-1]]
+        assert g.dtype == np.float64 and np.isfinite(g).all(), name
+        err, scale = np.abs(g - w).max(), np.abs(w).max()
+        assert err <= 1e-9 * scale, (name, err / scale)

@@ -126,6 +126,7 @@ def test_port_imports_no_jax():
         "import torch_fdtd_string_tpu_torch.run\n"
         "import torch_fdtd_string_tpu_torch.tasks.time_experiment\n"
         "import torch_fdtd_string_tpu_torch.tools.kernel_timing\n"
+        "import torch_fdtd_string_tpu_torch.tools.profile_kernel\n"
         "bad = sorted(m for m in sys.modules if m.startswith('jax')\n"
         "             or m.split('.')[0] == 'torch_fdtd_string_tpu')\n"
         "print(bad)\n"

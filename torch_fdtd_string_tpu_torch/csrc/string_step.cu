@@ -35,8 +35,11 @@
 // of the 132 SMs.  Device-memory traffic is small: the f0 column (and the
 // four bow signals) in, the readouts and probe traces out and, with
 // collect_state, M_t + M_l floats of state out per string and step, written
-// coalesced.  Making it fast (several strings per CTA, warp-level PCR with
-// shuffles, fewer barriers) is later work.
+// coalesced.  Fewer barriers do not make it faster: a step of three
+// barriers per PCR solve, warp-level levels by shuffles and stencils without
+// round trips gave the same results bit for bit and ran 8-25% slower on
+// plucked strings (PERF.md), since each PCR level's time is its own
+// dependent chain (reciprocal, loads, products), not its barrier.
 //
 // The GMRES rescue (kGmres; pallas_step.py:579-764): a string whose sweeps
 // exit untrusted (hopeless, non-finite, or above tolerance at the cap)
@@ -86,6 +89,15 @@
 //
 // Entry point: string_step_launch (plain C, loaded with ctypes) takes a
 // LaunchArgs struct and returns the cudaError_t of the launch.
+//
+// The instrumented build (-DSTRING_STEP_CLOCKS, a library of its own that
+// tools/profile_kernel.py loads; the main path never does): thread 0 of each
+// CTA adds the clock64() cycles of each phase class of the step loop into
+// shared counters, and writes them per string into a (B_rows, kClockSlots)
+// int64 buffer, the last column the count of Gauss-Seidel sweeps.  A mark
+// charges the cycles since the previous mark to the phase that just ended;
+// in the plain build it compiles to nothing.  Its entry point is
+// string_step_launch_clocks.
 
 #include <cuda_runtime.h>
 
@@ -128,6 +140,7 @@ namespace {
 // constants folded in double on the host, then rounded to float, as the JAX
 // kernel folds its Python-float constants.
 struct Params : LaunchArgs {
+  long long* clocks;  // the instrumented build's (B_rows, kClockSlots) counts
   int levels;
   float k_f, k2, k4, theta_f, c_half, c_a0, two_t, two_two_t, lambda_f, two_pi;
   float ln10_6, inner_eps, M_t_sem_f;
@@ -148,6 +161,51 @@ constexpr int kGmresSmall = 352;
 // happy-breakdown guard of the rescue's divisions: sqrt(FLT_MIN)
 // (pallas_step.py:611)
 constexpr float kTiny = 1.0842021724855044e-19f;
+
+// the instrumented build's phase classes (its counters' columns)
+enum Phase {
+  kPhStart,      // step start: the f0 load, the grid and loss terms
+  kPhRhs,        // the RHS pass and the tridiagonals
+  kPhPcrT,       // PCR on t
+  kPhStencilTL,  // the t->l stencil: K_lt of the u iterate
+  kPhPcrL,       // PCR on l
+  kPhStencilLT,  // the l->t stencil: K_tl of a z iterate
+  kPhExit,       // relaxation and the exit reduction
+  kPhReadout,    // readout, state write, the carry
+  kPhExcitation, // the bow's and hammer's reductions and scalars
+  kPhGmres,      // the rescue, apart from its solves and stencils
+  kClockPhases
+};
+constexpr int kClockSlots = kClockPhases + 1;
+
+// floats of dynamic shared memory the kernel lays out (string_step_kernel),
+// and the instrumented build's counters after them, 8-byte aligned
+__host__ __device__ constexpr size_t shared_floats(int W, bool bow, bool gmres) {
+  return static_cast<size_t>(kNumArrays + (bow ? 1 : 0)) * W + kRedFloats +
+         (gmres ? static_cast<size_t>(kGmresRows) * W + kGmresSmall : 0);
+}
+__host__ __device__ constexpr size_t clock_offset(int W, bool bow, bool gmres) {
+  return (shared_floats(W, bow, gmres) + 1) / 2 * 2;
+}
+
+struct Clocks {
+  long long* acc;
+  long long last;
+  __device__ __forceinline__ void mark(int ph) {
+#ifdef STRING_STEP_CLOCKS
+    if (threadIdx.x == 0) {
+      const long long now = clock64();
+      acc[ph] += now - last;
+      last = now;
+    }
+#endif
+  }
+  __device__ __forceinline__ void sweep() {
+#ifdef STRING_STEP_CLOCKS
+    if (threadIdx.x == 0) ++acc[kClockPhases];
+#endif
+  }
+};
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   // max that propagates NaN, as jnp.max / torch.amax do
@@ -325,6 +383,12 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
     uH1 = p.uH1[b];
     uH2 = p.uH2[b];
   }
+  Clocks clk{nullptr, 0};
+#ifdef STRING_STEP_CLOCKS
+  clk.acc = reinterpret_cast<long long*>(sm + clock_offset(W, kBow, kGmres));
+  if (i < kClockSlots) clk.acc[i] = 0;
+  clk.last = clock64();
+#endif
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
@@ -354,6 +418,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
     const float scale = p.ln10_6 / (zeta1 - zeta2);
     const float sig0 = scale * (lossy ? -zeta2 / st1 + zeta1 / st2 : 0.0f);
     const float sig1 = scale * (lossy ? 1.0f / st1 - 1.0f / st2 : 0.0f);
+    clk.mark(kPhStart);
 
     const float live_t = itf < n_t ? 1.0f : 0.0f;
     const float live_l = itf < n_l ? 1.0f : 0.0f;
@@ -447,6 +512,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
     float rhs_u = rhs_u0 * live_t;  // iterate-independent without an excitation
     const float z_keep = fminf(fmaxf(N_t + N_l + 2.0f - p.M_t_sem, 0.0f), n_l);
     rhs_z = rhs_z * (itf < z_keep ? 1.0f : 0.0f);
+    clk.mark(kPhRhs);
 
     // ---- excitation profiles, iterate-independent parts
     // (pallas_step.py:418-447): the bow's raised cosine over the first M_t
@@ -491,6 +557,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
                 static_cast<float>(pow(static_cast<double>(nan_max(eta_1, 0.0f)),
                                        static_cast<double>(a_H - 1.0f)));
       }
+      clk.mark(kPhExcitation);
     }
 
     // excitation RHS linearized at the iterate u_c (pallas_step.py:452-503),
@@ -532,6 +599,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
           const float G_H = -p.k2 * eps_prof * (M_r * F_H);
           rhs = rhs + hm * nan_to_num(G_H);
         }
+        clk.mark(kPhExcitation);
       }
       return rhs * live_t;
     };
@@ -546,10 +614,14 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       const float q = lam * ((izc - (i > 0 ? sIz1[i - 1] : 0.0f)) / h_t);
       sQ1[i] = q;
       __syncthreads();
-      return -phi_pow * (((i + 1 < W ? sQ1[i + 1] : 0.0f) - q) / h_t);
+      const float ktl = -phi_pow * (((i + 1 < W ? sQ1[i + 1] : 0.0f) - q) / h_t);
+      clk.mark(kPhStencilLT);
+      return ktl;
     };
-    // the z half of a sweep: K_lt of the new u, then the PCR solve on l
+    // the z half of a sweep: K_lt of the new u, then the PCR solve on l.
+    // Every call follows a PCR solve on t, whose cycles its first mark takes
     auto z_solve = [&](float u_g, float rhs_zs) -> float {
+      clk.mark(kPhPcrT);
       sUg[i] = u_g;
       __syncthreads();
       sP[i] = lam * ((u_g - (i > 0 ? sUg[i - 1] : 0.0f)) / h_t);
@@ -558,7 +630,10 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       sIu[i] = iu;
       __syncthreads();
       const float K_lt = -phi_pow * (((i + 1 < W ? sIu[i + 1] : 0.0f) - iu) / h_l);
-      return pcr(sub_l, diag_l, sup_l, -rhs_zs - K_lt, pcr_buf, p.levels);
+      clk.mark(kPhStencilTL);
+      const float z_g = pcr(sub_l, diag_l, sup_l, -rhs_zs - K_lt, pcr_buf, p.levels);
+      clk.mark(kPhPcrL);
+      return z_g;
     };
 
     // ---- adaptive damped block Gauss-Seidel (pallas_step.py:505-578), or
@@ -572,6 +647,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       if (sweep > 0) K_tl = K_tl_of(z_c);
       const float u_g = pcr(sub_t, diag_t, sup_t, -rhs_u - K_tl, pcr_buf, p.levels);
       const float z_g = z_solve(u_g, rhs_z);
+      clk.sweep();
       if constexpr (kFixed) {  // plain sweeps: no relaxation, reduction or exit test
         u_c = u_g;
         z_c = z_g;
@@ -593,6 +669,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
       hopeless = hop;
       scale_u = red[2] + inner_eps;
       const bool live_err = delta > inner_eps * scale_u && !hop;
+      clk.mark(kPhExit);
       if (!live_err || sweep + 1 >= p.coupling_iters) break;
     }
 
@@ -622,6 +699,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
 #pragma unroll 1
           for (int ii = 0; ii < kGmresM && res > 1e-6f * beta; ++ii) {
             const float vi = sV[ii * W + i];
+            clk.mark(kPhGmres);
             const float gz = z_solve(pcr(sub_t, diag_t, sup_t, -0.0f - K_tl_of(vi),
                                          pcr_buf, p.levels),
                                      0.0f);
@@ -659,6 +737,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
             g_cur = -si * g_cur;
             res = fabsf(g_cur);
             ++n_it;
+            clk.mark(kPhGmres);
           }
           __syncthreads();  // R, g and the last basis row
           if (i == 0) {  // back substitution on R y = g
@@ -672,11 +751,14 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
           z_sol = 0.0f;
           for (int i2 = 0; i2 < n_it; ++i2) z_sol = z_sol + sY[i2] * sV[i2 * W + i];
           relres = sdiv(res, beta);
+          clk.mark(kPhGmres);
           u_lin = pcr(sub_t, diag_t, sup_t, -rhs_p - K_tl_of(z_sol), pcr_buf, p.levels);
+          clk.mark(kPhPcrT);
         }
         // accepted when the Krylov residual is small, else poisoned
         u_c = relres <= 1e-3f ? u_lin : NAN;
         z_c = z_sol;
+        clk.mark(kPhGmres);
       }
     }
     // ---- Dirichlet rows (pallas_step.py:765-766); multiplying keeps a NaN
@@ -731,6 +813,7 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
     sz2[i] = sz1[i];
     sz1[i] = z_n;
     __syncthreads();
+    clk.mark(kPhReadout);
   }
 
   if (i < p.M_t) {
@@ -741,15 +824,21 @@ __global__ void __launch_bounds__(1024) string_step_kernel(const Params p) {
     p.z1_out[(size_t)b * p.ld_l + i] = sz1[i];
     p.z2_out[(size_t)b * p.ld_l + i] = sz2[i];
   }
+#ifdef STRING_STEP_CLOCKS
+  __syncthreads();  // thread 0's last mark
+  if (i < kClockSlots) p.clocks[(size_t)b * kClockSlots + i] = clk.acc[i];
+#endif
 }
 
 template <bool kBow, bool kHammer, bool kSurface, bool kGmres, bool kMms = false,
           bool kFixed = false>
 cudaError_t launch(const Params& p, int W, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(kNumArrays + (kBow ? 1 : 0)) * W + kRedFloats +
-       (kGmres ? static_cast<size_t>(kGmresRows) * W + kGmresSmall : 0)) *
-      sizeof(float);
+#ifdef STRING_STEP_CLOCKS
+  const size_t smem = clock_offset(W, kBow, kGmres) * sizeof(float) +
+                      kClockSlots * sizeof(long long);
+#else
+  const size_t smem = shared_floats(W, kBow, kGmres) * sizeof(float);
+#endif
   auto kernel = string_step_kernel<kBow, kHammer, kSurface, kGmres, kMms, kFixed>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -758,9 +847,7 @@ cudaError_t launch(const Params& p, int W, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
+int launch_checked(const LaunchArgs* a, long long* clocks, void* stream) {
   if (a == nullptr || a->struct_size != static_cast<int>(sizeof(LaunchArgs))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -796,6 +883,7 @@ extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
   }
   Params p;
   static_cast<LaunchArgs&>(p) = *a;
+  p.clocks = clocks;
   p.levels = 0;
   while ((1 << p.levels) < W) ++p.levels;
   const double k = a->k, theta = a->theta;
@@ -855,3 +943,25 @@ extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
   }
   return static_cast<int>(err);
 }
+
+}  // namespace
+
+extern "C" int string_step_launch(const LaunchArgs* a, void* stream) {
+#ifdef STRING_STEP_CLOCKS
+  return static_cast<int>(cudaErrorInvalidValue);  // this build takes a clocks buffer
+#else
+  return launch_checked(a, nullptr, stream);
+#endif
+}
+
+#ifdef STRING_STEP_CLOCKS
+// The instrumented build's entry point: ``clocks`` is a (B_rows,
+// kClockSlots) int64 buffer on the device, indexed by batch row.
+extern "C" int string_step_launch_clocks(const LaunchArgs* a, long long* clocks,
+                                         void* stream) {
+  if (clocks == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_checked(a, clocks, stream);
+}
+
+extern "C" int string_step_clock_phases() { return kClockPhases; }
+#endif

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, ``build/kernels/lib<name>.so``
 under the repository root, on first use in a process, and loaded with
 ``ctypes``.  A library newer than its source is reused.  The sources include
-no PyTorch header, so a build takes seconds.
+no PyTorch header, so a build takes seconds.  A variant of a source built
+with preprocessor defines (an instrumented build) is a library of its own
+name.
 
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch versions round them, so kernel and plain version differ only
@@ -46,16 +48,17 @@ def find_nvcc():
     return nvcc
 
 
-def build_kernel_library(name):
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    return the library's path."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
+def build_kernel_library(name, source=None, defines=()):
+    """Compile ``csrc/<source>.cu`` (``source`` defaults to ``name``) with
+    ``-D`` of each of ``defines`` into ``lib<name>.so`` unless an up-to-date
+    library exists; return the library's path."""
+    src = os.path.join(CSRC_DIR, f"{source or name}.cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [find_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp, src]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -67,11 +70,11 @@ def build_kernel_library(name):
     return out
 
 
-def load_kernel_library(name):
+def load_kernel_library(name, source=None, defines=()):
     """Build (if needed) and load ``lib<name>.so``; cached per process."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build_kernel_library(name))
+            lib = ctypes.CDLL(build_kernel_library(name, source, defines))
             _LIBS[name] = lib
         return lib

@@ -58,6 +58,11 @@ OMEGA_FLOOR = 0.0625  # under-relaxation floor of the adaptive sweeps
 M_HD_CLAMP = -0.01  # hammer displacement clamp (pallas_step.py:46)
 HAMMER_MAX_ITER = 40  # inner hammer fixed-point cap (csrc/string_step.cu::kHammerMaxIter)
 GMRES_M = 16  # the rescue's Krylov dimension (csrc/string_step.cu::kGmresM)
+# the instrumented build of csrc/string_step.cu: library name, source,
+# defines; and its phase classes, in the order of the source's enum Phase
+CLOCKS_BUILD = ("string_step_clocks", "string_step", ("STRING_STEP_CLOCKS",))
+CLOCK_PHASES = ("step_start", "rhs", "pcr_t", "stencil_tl", "pcr_l", "stencil_lt",
+                "exit_reduce", "readout", "excitation", "gmres")
 BOW_KEYS = ("x_b", "v_b", "F_b", "wid", "phi_0", "phi_1", "mask")
 HAMMER_KEYS = ("x_H", "w_H", "M_r", "alpha", "mask")
 
@@ -274,6 +279,28 @@ def pluck_chunked(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, **kw):
     if kw.get("collect_state", False):
         fin = fin + (aux["state_u"], aux["state_z"])
     return uout, zout, fin
+
+
+def string_chunked_clocks(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *, M_t, M_l,
+                          bucketed=False, host_bounds=None, **kw):
+    """:func:`string_chunked` (with ``bucketed``,
+    :func:`string_chunked_bucketed`) through the instrumented build of the
+    kernel (``CLOCKS_BUILD``): returns its results and a ``(B,
+    len(CLOCK_PHASES) + 1)`` int64 tensor, each string's clock64() cycles
+    per phase class (thread 0 of its CTA) summed over the steps, and in the
+    last column its Gauss-Seidel sweeps.  CUDA tensors only; the main path
+    never loads this build."""
+    if not f0.is_cuda:
+        raise ValueError("string_chunked_clocks: the instrumented kernel needs CUDA "
+                         f"tensors, got {f0.device}")
+    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    if not bucketed:
+        groups = None
+    clocks = torch.zeros((f0.shape[0], len(CLOCK_PHASES) + 1), dtype=torch.int64,
+                         device=f0.device)
+    out = _launch_cuda(c, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *exc,
+                       groups=groups, clocks=clocks)
+    return out, clocks
 
 
 def string_chunked_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
@@ -1018,12 +1045,14 @@ def _hammer_fixed_point(uH1, uH2, eta0, eta_1, eta_2, f_pow, eps_u, hmask,
 
 
 def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
-                 bow, hammer, p_a=None, groups=None, out=None):
+                 bow, hammer, p_a=None, groups=None, out=None, clocks=None):
     """Check the inputs, allocate the outputs (or take those of ``out``, a
     whole-batch ``(uout, zout, aux)``, and write in place) and launch
     ``string_step``: once over the batch, or once per width group ``(W_g,
     rows)`` of ``groups``, each group on its own stream, joined to the
-    current stream before the outputs are returned."""
+    current stream before the outputs are returned.  With ``clocks``, a
+    ``(B, len(CLOCK_PHASES) + 1)`` int64 tensor, launch the instrumented
+    build instead, which writes its cycle and sweep counts there."""
     from . import build
 
     if (c.manufactured or c.coupling_fixed) and (c.has_bow or c.has_hammer):
@@ -1074,9 +1103,24 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
         if W_g > 1024:
             raise ValueError(f"grid width {W_g} exceeds one thread block (1024)")
 
-    launch = build.load_kernel_library("string_step").string_step_launch
-    launch.argtypes = [ctypes.POINTER(_LaunchArgs), ctypes.c_void_p]
-    launch.restype = ctypes.c_int
+    if clocks is None:
+        launch = build.load_kernel_library("string_step").string_step_launch
+        launch.argtypes = [ctypes.POINTER(_LaunchArgs), ctypes.c_void_p]
+        launch.restype = ctypes.c_int
+    else:
+        if (clocks.dtype != torch.int64 or clocks.device != f0.device
+                or tuple(clocks.shape) != (B, len(CLOCK_PHASES) + 1)
+                or not clocks.is_contiguous()):
+            raise ValueError(f"clocks must be a contiguous int64 ({B}, "
+                             f"{len(CLOCK_PHASES) + 1}) tensor on {f0.device}")
+        lib = build.load_kernel_library(*CLOCKS_BUILD)
+        if lib.string_step_clock_phases() != len(CLOCK_PHASES):
+            raise RuntimeError("the instrumented kernel's phase classes differ from "
+                               "CLOCK_PHASES")
+        raw = lib.string_step_launch_clocks
+        raw.argtypes = [ctypes.POINTER(_LaunchArgs), ctypes.c_void_p, ctypes.c_void_p]
+        raw.restype = ctypes.c_int
+        launch = lambda args, stream: raw(args, clocks.data_ptr(), stream)
     opts = dict(dtype=torch.float32, device=f0.device)
     if out is None:
         # lanes past a narrower group's width are never written and read 0

@@ -302,11 +302,14 @@ POSTPROC_G = 32
 
 def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
             device, sr=48000, postproc_keep=None, stats=None, kernel_gmres=None,
-            chunk_size=None, save_path=None):
+            chunk_size=None, save_path=None, skip_nan=True):
     """Run one batch through the width-bucketed string kernel (steps
     2..Nt-1), or a float64 batch through the scan engine
     (:func:`process_engine`, in chunks of ``chunk_size`` samples, writing
-    the readout wavs under ``save_path`` after each chunk when it is set).
+    the readout wavs under ``save_path`` after each chunk when it is set,
+    and raising on a NaN string after a chunk unless ``skip_nan``; the
+    kernel's route leaves NaN strings to the caller, as the JAX package's
+    does).
 
     Returns ``(uout, zout, state_u, state_z, v_r, F_H, u_H, sig0, sig1)``.
     Without ``postproc_keep`` every array is numpy and the state fields are
@@ -329,7 +332,7 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
     if state.u0.dtype == np.float64:
         return _process_double(state, bow, hammer, bow_mask, hammer_mask, consts,
                                Nt, chunk_size or Nt, device, sr, postproc_keep,
-                               stats, save_path)
+                               stats, save_path, skip_nan)
     args, kwargs = kernel_inputs(state, consts, Nt, device, bow, hammer,
                                  bow_mask, hammer_mask)
     # host copies of the draws for the bucketing bounds
@@ -411,14 +414,14 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
 
 
 def _process_double(state, bow, hammer, bow_mask, hammer_mask, consts, Nt,
-                    chunk_size, device, sr, postproc_keep, stats, save_path):
+                    chunk_size, device, sr, postproc_keep, stats, save_path, skip_nan):
     """:func:`process` of a float64 batch: the scan engine, as the JAX
     package runs every float64 run.  A fused run gets its readouts as
     tensors and its state as a :class:`_DeviceState` with no device
     post-processing: every item takes the host build."""
     out = process_engine(state, bow, hammer, bow_mask, hammer_mask, consts, Nt,
                          chunk_size, device, collect_state=consts.collect_state,
-                         save_path=save_path, sr=sr)
+                         save_path=save_path, sr=sr, skip_nan=skip_nan)
     stats.count(sum(x.nbytes for x in out if isinstance(x, np.ndarray)))
     if postproc_keep is None:
         return out
@@ -433,7 +436,7 @@ def _process_double(state, bow, hammer, bow_mask, hammer_mask, consts, Nt,
 
 def process_engine(state, bow, hammer, bow_mask, hammer_mask,
                    consts: SimConsts, Nt, chunk_size, device, collect_state=True,
-                   save_path=None, sr=48000):
+                   save_path=None, sr=48000, skip_nan=True):
     """One batch through the scan engine (``core/engine.py``), the JAX
     ``process`` engine branch: steps 2..Nt-1 in chunks of ``chunk_size - 2``
     steps (the reference's 2-sample overlap, simulate.py:57-107, which the
@@ -445,7 +448,9 @@ def process_engine(state, bow, hammer, bow_mask, hammer_mask,
     With ``save_path``, every string not NaN so far has its readouts up to
     the chunk's end written to ``{save_path}-{b}/output{-u,-z,}.wav``
     (PCM_16, not normalized) after each chunk, as the JAX package writes
-    them with ``task.write_during_process``."""
+    them with ``task.write_during_process``.  Without ``skip_nan`` a string
+    that is NaN at a chunk's end raises ``FloatingPointError`` (the JAX
+    package asserts the same, simulate.py:774-776)."""
     dtype = torch.float64 if state.u0.dtype == np.float64 else torch.float32
     np_dt = np.float64 if dtype == torch.float64 else np.float32
     to = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
@@ -471,6 +476,11 @@ def process_engine(state, bow, hammer, bow_mask, hammer_mask,
         carry, out = simulate_chunk(carry, range(cs, ce), sp, bp, hp, bmask, hmask,
                                     consts)
         outs.append({key: v.cpu().numpy() for key, v in out.items()})
+        if not skip_nan:
+            bad = np.nonzero(np.isnan(outs[-1]["uout"]).any(axis=0))[0]
+            if len(bad):
+                raise FloatingPointError(
+                    f"string(s) {bad.tolist()} NaN by step {ce} (task.skip_nan=false)")
         if save_path is not None:
             _write_readouts(save_path, [o["uout"] for o in outs],
                             [o["zout"] for o in outs], sr)
@@ -606,10 +616,11 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
              relative_order=4, surface_integral=False, randomize_each="batch",
              manufactured=False, rng=None, collect_state=True,
              postproc_keep=None, stats=None, kernel_gmres=None,
-             chunk_length=-1, save_path=None):
+             chunk_length=-1, save_path=None, skip_nan=True):
     """Draw one batch and simulate it (reference simulate.py:121-217).
-    ``chunk_length`` (seconds, -1 for the whole run) and ``save_path`` are
-    the float64 engine's chunking and its ``write_during_process`` target.
+    ``chunk_length`` (seconds, -1 for the whole run), ``save_path`` and
+    ``skip_nan`` are the float64 engine's chunking, its
+    ``write_during_process`` target and its NaN check (:func:`process`).
 
     Returns ``(results, (string, bow, hammer, [k, theta_t, lambda_c],
     consts), (bow_mask, hammer_mask, pluck_mask), device)``; ``results`` as
@@ -635,7 +646,7 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
                       total_size, device, sr=sr,
                       postproc_keep=postproc_keep, stats=stats,
                       kernel_gmres=kernel_gmres, chunk_size=chunk_size,
-                      save_path=save_path)
+                      save_path=save_path, skip_nan=skip_nan)
     k = 1.0 / sr
     return (results, (string, bow, hammer, [k, theta_t, lambda_c], consts),
             (bow_mask, hammer_mask, pluck_mask), device)
@@ -751,6 +762,26 @@ def _assemble_post_item(pz, b, _sim, _str, _bow, _ham, string, Nx_t,
 # a prepared item by task.save_compact_params (the JAX data/dataset.py KEYS)
 COMPACT_DROP = ("Nx_t", "Nx_l", "target_f0", "x_B", "v_B", "F_B", "wid_B",
                 "v_H", "u_H")
+
+
+def _dump_draw(path, b, why, string, bow, hammer, bow_mask, hammer_mask, consts):
+    """String ``b``'s whole draw, to re-run it exactly (the JAX
+    ``_dump_draw``, simulate.py:1565-1597, with ``task.dump_draws`` or,
+    for the strings a batch skips, ``task.dump_skipped``): the same keys
+    and values."""
+    np.savez(
+        path, why=why,
+        kappa=string.kappa[b], alpha=string.alpha[b], u0=string.u0[b], v0=string.v0[b],
+        p_a=string.p_a[b], f0=string.f0[b], pos=string.pos[b], T60=string.T60[b],
+        x_b=bow.x_b[b], v_b=bow.v_b[b], F_b=bow.F_b[b], phi_0=bow.phi_0[b],
+        phi_1=bow.phi_1[b], wid=bow.wid[b],
+        x_H=hammer.x_H[b], v_H=hammer.v_H[b], u_H=hammer.u_H[b], w_H=hammer.w_H[b],
+        M_r=hammer.M_r[b], alpha_H=hammer.alpha[b],
+        bow_mask=np.asarray(bow_mask)[b], hammer_mask=np.asarray(hammer_mask)[b],
+        k=consts.k, theta_t=consts.theta_t, lambda_c=consts.lambda_c,
+        relative_error=consts.relative_error, M_t=consts.M_t, M_l=consts.M_l,
+        surface_integral=consts.surface_integral,
+    )
 
 
 def run(args, save_dir, model_name, n_samples):
@@ -925,7 +956,7 @@ def run(args, save_dir, model_name, n_samples):
                 collect_state=collect_state,
                 postproc_keep=(keep_it, fuse_Nx) if fuse else None,
                 stats=stats, kernel_gmres=ladder, chunk_length=task.chunk_length,
-                save_path=save_path, **kw,
+                save_path=save_path, skip_nan=task.skip_nan, **kw,
             )
             proc_time = time.time() - st
             time_log.append(proc_time)
@@ -1014,7 +1045,8 @@ def run(args, save_dir, model_name, n_samples):
             batch_stat["written"] = 0
             skipped_detail = []
             for b in range(task.batch_size):
-                if state_is_nan[b] or (task.skip_silence and is_silent[b]):
+                skipped_here = state_is_nan[b] or (task.skip_silence and is_silent[b])
+                if skipped_here:
                     skipped_detail.append({
                         "b": int(b),
                         "why": "nan" if state_is_nan[b] else "silent",
@@ -1022,6 +1054,11 @@ def run(args, save_dir, model_name, n_samples):
                         "alpha": round(float(string.alpha[b]), 3),
                         "p_a": round(float(string.p_a[b]), 4),
                     })
+                if task.get("dump_draws") or (skipped_here and task.get("dump_skipped")):
+                    _dump_draw(f"{save_dir}/draw-{dx}-{b}.npz", b,
+                               skipped_detail[-1]["why"] if skipped_here else "kept",
+                               string, bow, hammer, bow_mask, hammer_mask, sim_c)
+                if skipped_here:
                     continue
                 batch_stat["written"] += 1
                 excitation = ",".join(
