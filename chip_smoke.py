@@ -62,7 +62,25 @@ Phases; any failure exits non-zero:
    B=16), every point present, and one engine point (B=4, short) for its
    ms per step.
 
-Phases 13-16 run after phase 10 and before the ladder phases 11-12, whose
+17. the DMSP serving path on phase 10's corpus: the port's
+   ``tools/make_splits`` (8 strings to valid, the rest to test); for
+   ``model.mode_estimator=mlp`` and ``physics``, ``experiment=synth-dmsp``
+   at full width built from a seeded generator and checkpointed with the
+   port's ``save_checkpoint`` (untrained weights), then ``python -m
+   torch_fdtd_string_tpu_torch.run experiment=synth-dmsp proc.train=false
+   proc.test=true task.plot=false`` through ``run.main``: both score
+   tables complete and finite, no partial table left, the logged test
+   metrics finite; one batch of 256 through the model on the card and on
+   the CPU with the noise fixed (the estimator's and the blocks' outputs
+   within the CPU tests' float32 bounds, the waveform within the phase-sum
+   bound); the forward's stages timed with CUDA events (the estimator and
+   the FM/AM blocks, ``modal_synth``, the noise branch) beside the host
+   scoring; the modal baseline's rows recomputed on the CPU; then the
+   float64 repair: ``experiment=linear-string`` at its own double
+   precision (480 steps) on the card and with ``proc.cpu=true``, the
+   written ``state_u`` within 1e-9 of scale, ms per step on each.
+
+Phases 13-17 run after phase 10 and before the ladder phases 11-12, whose
 length follows the time left.
 
 Phase 2 also prints ptxas's registers and spills of every instance.
@@ -113,6 +131,7 @@ two commits in turns (old, new, new, old) to compare them on one card.
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import shutil
@@ -239,6 +258,21 @@ NONLINEAR = ["experiment=nonlinear-string"] + LINEAR[1:]
 # from the plain version's reading on the CPU (proc.cpu=true, the same
 # overrides; PERF.md)
 MMS_RUN_BOUND = 0.02
+# phase 17: synth-dmsp at full width scoring phase 10's corpus, 8 strings
+# held out to valid; the float32 bounds of the CPU tests
+# (tests/test_torch_dmsp_modules.py: PHASE_FREE_BOUND for the estimators'
+# modes and the blocks' freq_m / coef_m, WAVE_BOUND for the waveform of
+# the full-width model over 1 s); WAVE64_BOUND for the waveform of the
+# untrained mlp run in float64 on its own modes, card against CPU (10x the
+# 2.5e-11 the card read, PERF.md); the score rows
+# (card against CPU scoring) at 1e-6, and linear-string's float64 state on
+# the card and the CPU at 1e-9 of scale
+DMSP = ["experiment=synth-dmsp", "proc.train=false", "proc.test=true", "task.plot=false"]
+DMSP_VALID, DMSP_BATCH = 8, 256
+PHASE_FREE_BOUND, WAVE_BOUND, WAVE64_BOUND = 2.5e-4, 2e-3, 2.5e-10
+MODALS_ATOL, F64_REL = 1e-6, 1e-9
+F64_RUN = ["experiment=linear-string", "task.length=0.01", "task.plot=false",
+           "task.plot_state=false"]
 # phase 16's engine point (batch, seconds): the eager engine takes tens of
 # ms per step on the card
 ENGINE_POINT = (4, 0.005)
@@ -1237,6 +1271,323 @@ def drive_time_experiment(dev, card):
     return by_spec
 
 
+def read_scores(path):
+    """A score table's ids and rows (the mean row last)."""
+    with open(path) as f:
+        lines = f.read().strip().split("\n")
+    rows = [line.split("\t") for line in lines[1:]]
+    return [r[0] for r in rows], np.array([[float(v) for v in r[1:]] for r in rows])
+
+
+def rel_diff(ref, got):
+    ref = ref.detach().double().cpu()
+    got = got.detach().double().cpu()
+    return float((ref - got).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def dmsp_models(load_dir, load_name, dev, card):
+    """Phase 17's models: for each estimator the composed args and the
+    full-width synth-dmsp model from a seeded generator, checkpointed into
+    ``results/chip_smoke_17_<estimator>``; the physics table's build
+    timed first."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.models import physmodes
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    out = {}
+    for est in ("mlp", "physics"):
+        over = DMSP + [f"model.mode_estimator={est}", f"task.load_dir={load_dir}",
+                       f"task.load_name={load_name}"]
+        args = compose(port_run.CONFIG_DIR, over)
+        if est == "physics":
+            t0 = time.perf_counter()
+            physmodes.mu1_tables(*args.model.kappa_scale)
+            built = physmodes.table_build_seconds
+            print(f"[17] physics estimator's mu1 table ready in "
+                  f"{time.perf_counter() - t0:.2f} s (build "
+                  f"{sum(built.values()):.2f} s; 0 when read from build/cache) [{card}]")
+        model = S.build_model(args, torch.Generator().manual_seed(17), dev)
+        run_dir = os.path.join(ROOT, "results", f"chip_smoke_17_{est}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        trainer.save_checkpoint(run_dir, model, 0)
+        n_par = sum(p.numel() for p in model.parameters())
+        print(f"[17] {est}: synth-dmsp hidden_dim {args.model.hidden_dim}, embed_dim "
+              f"{args.model.embed_dim}, n_modes {args.model.n_modes}, n_bands "
+              f"{args.model.n_bands}, block_size {args.model.block_size}: {n_par} "
+              f"parameters, untrained weights (seed 17) checkpointed")
+        out[est] = (over, args, model, run_dir)
+    return out
+
+
+def dmsp_serve(est, over, run_dir, n_items, card):
+    """Phase 17, D.3: proc.test through run.main; the score tables and the
+    logged metrics checked.  Returns the tables' ids and rows by name."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+
+    t0 = time.perf_counter()
+    save_dir = port_run.main(over + [f"task.root_dir={os.path.dirname(run_dir)}",
+                                     f"task.save_name={os.path.basename(run_dir)}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    score = os.path.join(save_dir, "score")
+    if glob.glob(os.path.join(score, "*partial*")):
+        raise AssertionError(f"[17] {est}: a partial score table is left")
+    tables = {}
+    for name in ("output", "modals"):
+        ids, rows = read_scores(os.path.join(score, f"{name}.txt"))
+        want = [f"0-{i // DMSP_BATCH}-{i % DMSP_BATCH}" for i in range(n_items)] + ["# mean"]
+        if ids != want or rows.shape != (n_items + 1, 9) or not np.isfinite(rows).all():
+            raise AssertionError(f"[17] {est}: {name}.txt has {len(ids)} rows "
+                                 f"{ids[:2]}...{ids[-2:]}, finite {np.isfinite(rows).all()}")
+        tables[name] = (ids, rows)
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        rec = json.loads(f.read().strip().split("\n")[-1])
+    metrics = {k: v for k, v in rec.items() if k.startswith("test/")}
+    if not metrics or not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"[17] {est}: logged test metrics {rec}")
+    mean = dict(zip(["x_grid", "kappa", "alpha", "p_a", "p_x", "si_sdr", "sdr", "logmag",
+                     "f0_error"], tables["output"][1][-1]))
+    print(f"[17] {est}: proc.test scored {n_items} items in {wall:.2f} s = "
+          f"{n_items / wall:.2f} items/s end to end (checkpoint load, data, forward, "
+          f"scoring on the card, tables) [{card}]")
+    print(f"[17] {est}: untrained weights; not comparable to r5b: mean si_sdr "
+          f"{mean['si_sdr']:.3f} dB, sdr {mean['sdr']:.3f} dB, logmag {mean['logmag']:.3f}, "
+          f"f0_error {mean['f0_error']:.3f} Hz; logged {metrics}")
+    return tables
+
+
+def dmsp_card_vs_cpu(est, model, prep, dev, gt_modes, dtype=torch.float32, phase32=False):
+    """Phase 17, D.4: one batch through the model on the card and, moved
+    there, on the CPU, in ``dtype``, the noise fixed to one seeded array;
+    the estimator's and the blocks' outputs held at PHASE_FREE_BOUND, with
+    the bank driven by the dataset's modes (``gt_modes``) or the
+    estimator's.  ``phase32`` sums the phase as one float32 cumsum, as
+    ``modal_synth`` did before its float64 phase sum (ops/modal.py).
+    Returns the relative differences; the caller holds the waveform."""
+    import copy
+
+    from torch_fdtd_string_tpu_torch.models import synthesizer
+    from torch_fdtd_string_tpu_torch.ops import modal
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+
+    draw, phase_sum = synthesizer.uniform, modal.phase_sum
+    synthesizer.uniform = lambda shape, generator, device, dtype: torch.as_tensor(
+        np.random.default_rng(170).random(tuple(shape), dtype=np.float32),
+        device=device).to(dtype)
+    if phase32:
+        modal.phase_sum = lambda freqs, dim=-2: torch.cumsum(freqs, dim=dim)
+    keys = ("xg", "tg", "ka", "al", "t60")
+    outs, blocks, secs = {}, {}, {}
+    try:
+        for where, d in (("card", dev), ("cpu", "cpu")):
+            m = model if d == dev and dtype == torch.float32 else copy.deepcopy(model).to(d, dtype)
+            p = {k: v.to(dtype) for k, v in S.to_device(prep, d).items()}
+            step = S.make_eval_step(m, {}, [], m.inharmonic, use_gt_modes=gt_modes)
+            t0 = time.perf_counter()
+            outs[where] = step(p, None)[0]
+            torch.cuda.synchronize()
+            secs[where] = time.perf_counter() - t0
+            # freq_m and coef_m in full (the outputs keep the last frame's)
+            modes = [p["f_k"], p["c_k"]] if gt_modes else [None, None]
+            with torch.no_grad():
+                core_in, _ = m.condition([p[k] for k in keys] + modes, p["f_0"], p["u_0"])
+                blocks[where] = m.core.modulate(*core_in[:6])
+    finally:
+        synthesizer.uniform, modal.phase_sum = draw, phase_sum
+    card, cpu = outs["card"], outs["cpu"]
+    errs = {k: rel_diff(cpu[k], card[k])
+            for k in ("preds_freq", "preds_coef", "preds_f0", "preds")}
+    errs["freq_m"] = rel_diff(blocks["cpu"][0], blocks["card"][0])
+    errs["coef_m"] = rel_diff(blocks["cpu"][1], blocks["card"][1])
+    which = "the dataset's modes" if gt_modes else "the estimator's modes"
+    how = f"{str(dtype)[6:]}" + (", one float32 cumsum for the phase (before the repair)"
+                                 if phase32 else "")
+    print(f"[17] {est}, the bank on {which}, {how}: B={prep['gt'].shape[0]} card against "
+          f"CPU (same weights, noise fixed), relative to scale: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; forward {secs['card']:.2f} s on the card, {secs['cpu']:.2f} s on the CPU")
+    for k in ("preds_freq", "preds_coef", "preds_f0", "freq_m", "coef_m"):
+        if not errs[k] <= PHASE_FREE_BOUND:
+            raise AssertionError(f"[17] {est}: {k} {errs[k]:.3e} > {PHASE_FREE_BOUND}")
+    return errs
+
+
+def dmsp_profile(est, model, prep, dev, card):
+    """Phase 17, D.5: the forward's stages at B=256 with CUDA events, and
+    ``modal_synth`` with a float32 cumsum for its phase beside the float64
+    one it ships with; each stage's share of the forward and scoring."""
+    from torch_fdtd_string_tpu_torch.ops import modal
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+
+    p = S.to_device(prep, dev)
+    keys = ("xg", "tg", "ka", "al", "t60")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        cond = lambda: model.condition([p[k] for k in keys] + [None, None], p["f_0"], p["u_0"])
+        core_in, _ = cond()
+        hidden, mf, mc, times, alpha, omega, n = core_in
+        mod = lambda: model.core.modulate(hidden, mf, mc, times, alpha, omega)
+        fm, cm = mod()
+        stages = {
+            "estimator+features": cuda_ms(cond, reps=5),
+            "FM/AM blocks": cuda_ms(mod, reps=5),
+            "modal_synth": cuda_ms(lambda: model.core.harmonic(fm, cm, n), reps=5),
+            "noise branch": cuda_ms(lambda: model.core.noise(hidden, cm, alpha, n, gen),
+                                    reps=5),
+        }
+        whole = cuda_ms(lambda: model([p[k] for k in keys] + [None, None], p["f_0"],
+                                      p["u_0"], gen), reps=5)
+        phase_sum = modal.phase_sum
+        modal.phase_sum = lambda freqs, dim=-2: torch.cumsum(freqs, dim=dim)
+        try:
+            synth32 = cuda_ms(lambda: model.core.harmonic(fm, cm, n), reps=5)
+        finally:
+            modal.phase_sum = phase_sum
+    print(f"[17] {est}: forward at B={prep['gt'].shape[0]}, Nt={prep['gt'].shape[-1]} "
+          f"{whole:.2f} ms (CUDA events, mean of 5); by stage " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in stages.items())
+          + f"; modal_synth with a float32 cumsum for its phase {synth32:.2f} ms, with the "
+          f"float64 phase sum {stages['modal_synth']:.2f} ms; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    return stages, whole
+
+
+def dmsp_scoring(est, model, prep, dev, tables, stages, card):
+    """Phase 17, D.5-D.6: the first test batch as ``proc.test`` serves it
+    (the estimator's modes, the device generator seeded 0), scored on the
+    card as ``evaluate`` scores it and, from the same outputs, on the CPU:
+    the card's rows (model and modal baseline) held to the CPU's at
+    MODALS_ATOL, and the served ``modals.txt`` rows too; both scorings
+    timed, with each stage's share of forward plus card scoring."""
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+    from torch_fdtd_string_tpu_torch.tasks.trainer import HEADER
+
+    p = S.to_device(prep, dev)
+    step = S.make_eval_step(model, {}, [], model.inharmonic, use_gt_modes=False)
+    out = step(p, torch.Generator(device=dev).manual_seed(0))[0]
+    n = out["preds"].shape[-1]
+
+    def score(d):
+        model_sc = S.summarize_eval_scores(prep, out["preds"].to(d), out["target"].to(d),
+                                           out["preds_f0"].to(d), prep["gt_f0"], model.sr)
+        modal_sc = S.summarize_eval_scores(prep, p["analytic"][..., :n].to(d),
+                                           out["target"].to(d),
+                                           prep.get("an_f0", prep["gt_f0"]), prep["gt_f0"],
+                                           model.sr)
+        return [np.array([[float(sc[k][i]) for k in HEADER] for i in range(len(prep["gt"]))])
+                for sc in (model_sc, modal_sc)]
+
+    card_rows = score(dev)
+    card_ms = cuda_ms(lambda: score(dev), reps=3)
+    t0 = time.perf_counter()
+    cpu_rows = score("cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    errs = [float(np.abs(a - b).max()) for a, b in zip(card_rows, cpu_rows)]
+    B = len(prep["gt"])
+    served = {name: float(np.abs(tables[name][1][:B] - rows).max())
+              for name, rows in zip(("output", "modals"), card_rows)}
+    stages = dict(stages, **{"scoring on the card (model + baseline)": card_ms})
+    total = sum(stages.values())
+    print(f"[17] {est}: scoring B={B} (model + baseline, float64) on the card "
+          f"{card_ms:.2f} ms (CUDA events, mean of 3), on the CPU {cpu_ms:.2f} ms (host "
+          f"clock, once); card against CPU, largest difference: model rows {errs[0]:.3e}, "
+          f"baseline rows {errs[1]:.3e} (bound {MODALS_ATOL}); the served tables' first "
+          f"{B} rows against the card's: output.txt {served['output']:.3e}, modals.txt "
+          f"{served['modals']:.3e} [{card}]")
+    print(f"[17] {est}: shares of forward + card scoring: " + ", ".join(
+        f"{k} {100 * v / total:.1f}%" for k, v in stages.items()))
+    for what, err in (("model rows", errs[0]), ("baseline rows", errs[1]),
+                      ("modals.txt", served["modals"])):
+        if not err <= MODALS_ATOL:
+            raise AssertionError(f"[17] {est}: {what} off the CPU's scoring by {err:.3e}")
+
+
+def f64_on_card(card):
+    """Phase 17, D.7: linear-string at its own float64 on the card and with
+    proc.cpu=true; the written state_u within F64_REL of scale."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+
+    states, per_step = {}, {}
+    for where, extra in (("card", []), ("cpu", ["proc.cpu=true"])):
+        name = f"chip_smoke_17_f64_{where}"
+        root_dir = os.path.join(ROOT, "results")
+        shutil.rmtree(os.path.join(root_dir, name), ignore_errors=True)
+        save_dir = port_run.main(F64_RUN + extra + [
+            f"task.root_dir={root_dir}", f"task.save_name={name}",
+            "task.randomize_name=false"])
+        log = "gpu_time.txt" if where == "card" else "cpu_time.txt"
+        if not os.path.exists(os.path.join(save_dir, log)):
+            raise AssertionError(f"[17] float64 on the {where}: no {log}")
+        with open(os.path.join(save_dir, log)) as f:
+            secs = sum(float(line.split("\t")[1]) for line in f)
+        z = np.load(os.path.join(save_dir, "0-0", "simulation.npz"))
+        states[where] = z["state_u"]
+        per_step[where] = secs / z["state_u"].shape[0] * 1e3
+    su_card, su_cpu = states["card"], states["cpu"]
+    if su_card.dtype != np.float64 or su_card.shape != su_cpu.shape:
+        raise AssertionError(f"[17] float64 state_u {su_card.dtype} {su_card.shape}")
+    err = float(np.abs(su_card - su_cpu).max() / np.abs(su_cpu).max())
+    print(f"[17] linear-string at float64 (480 steps): state_u on the card against the "
+          f"CPU {err:.3e} of scale (bound {F64_REL}); {per_step['card']:.2f} ms per step "
+          f"on the card, {per_step['cpu']:.2f} on the CPU (simulate(), the eager engine) "
+          f"[{card}]")
+    if not err <= F64_REL:
+        raise AssertionError(f"[17] float64 card against CPU {err:.3e}")
+    return per_step
+
+
+def drive_dmsp(corpus_prep, dev, card):
+    """Phase 17: the DMSP serving path on phase 10's corpus, then the
+    float64 repair."""
+    from torch_fdtd_string_tpu_torch.data.dataset import DataLoader, Testset
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+    from torch_fdtd_string_tpu_torch.tools.make_splits import make_splits
+
+    load_dir, load_name = os.path.dirname(corpus_prep), os.path.basename(corpus_prep)
+    items = sorted(d for d in os.listdir(corpus_prep)
+                   if os.path.exists(os.path.join(corpus_prep, d, "parameters.npz")))
+    n_cols = len([f for f in os.listdir(os.path.join(corpus_prep, items[0]))
+                  if f.startswith("ut-")])
+    counts = make_splits(corpus_prep, valid_n=DMSP_VALID, test_n=len(items) - DMSP_VALID)
+    n_items = counts["test"] * n_cols
+    print(f"[17] {load_name}: {len(items)} strings split {counts}: {n_items} test items "
+          f"({n_cols} columns each)")
+    models = dmsp_models(load_dir, load_name, dev, card)
+    first = next(iter(DataLoader(Testset(load_dir, load_name), DMSP_BATCH)))
+    paths = {}
+    for est, (over, args, model, run_dir) in models.items():
+        tables = dmsp_serve(est, over, run_dir, n_items, card)
+        prep = S.prepare_batch(first, args.model.n_modes, args.model.block_size,
+                               args.task.sr)
+        model.eval()
+        # the waveform held where the dtype resolves the phase: the served
+        # path (the estimator's modes) in float32 for physics and in float64
+        # for the untrained mlp, whose own modes reach ~6 rad/sample; the
+        # mlp's float32 bank on the dataset's modes; printed, not held: the
+        # mlp's served path in float32, and the float32 cumsum of the phase
+        # that modal_synth had before its float64 phase sum
+        cases = ([(False, torch.float32, False)] if est == "physics" else
+                 [(True, torch.float32, False), (False, torch.float32, False),
+                  (False, torch.float64, False), (True, torch.float32, True),
+                  (False, torch.float32, True)])
+        for gt_modes, dtype, phase32 in cases:
+            errs = dmsp_card_vs_cpu(est, model, prep, dev, gt_modes, dtype, phase32)
+            bound = WAVE64_BOUND if dtype == torch.float64 else WAVE_BOUND
+            held = not phase32 and (est == "physics" or gt_modes or dtype == torch.float64)
+            if held and not errs["preds"] <= bound:
+                raise AssertionError(f"[17] {est}: ut {errs['preds']:.3e} > {bound}")
+        torch.cuda.reset_peak_memory_stats()
+        stages, _ = dmsp_profile(est, model, prep, dev, card)
+        dmsp_scoring(est, model, prep, dev, tables, stages, card)
+        paths[est] = n_items
+    f64_on_card(card)
+    print(f"[17] paths: proc.test (synth-dmsp, full width) scored {paths} test items per "
+          f"estimator; the DMSP stack reaches no pallas_call, so no kernel of its own: "
+          f"its corpus came through phase 10's bucketed launches")
+
+
 def add_gmres(acc, by_spec):
     for spec, n in by_spec.items():
         if spec.endswith("-gmres"):
@@ -1626,6 +1977,10 @@ def main():
     add_gmres(gm_launches, by_spec)
     add_gmres(gm_launches, drive_time_experiment(dev, card))
     print(f"[16] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 17. the DMSP serving path on phase 10's corpus; float64 on the card ---
+    drive_dmsp(corpus["save_dir"] + "-prep", dev, card)
+    print(f"[17] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 11-12. the rescue ladder ----------------------------------------------
     length = ladder_length(11, LADDER_FUSED, dev, card, F64_BUDGET_S, on_card=True)

@@ -133,4 +133,4 @@ def test_single_precision_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="proc.cpu=true"):
         tsim.select_device(cpu=False, precision="single")
     assert tsim.select_device(cpu=True, precision="single").type == "cpu"
-    assert tsim.select_device(cpu=False, precision="double").type == "cpu"
+    assert tsim.select_device(cpu=True, precision="double").type == "cpu"

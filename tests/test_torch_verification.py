@@ -18,6 +18,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_simulate import BASE, CONFIG_DIR, _bundles, _check_common, _items
 from test_torch_simulate_excitation import EXC, TRACES, _check_excitation, _scale
@@ -54,7 +55,7 @@ def test_verification_run_matches_jax(tmp_path, experiment):
     simulation.npz within 1e-9 of its scale, the during-process wavs equal
     byte for byte and the normalized output wavs within one PCM_24 step.
     linear-string's state also tracks the manufactured solution."""
-    over = [f"experiment={experiment}", "task.length=0.01"] + NO_PLOTS
+    over = [f"experiment={experiment}", "task.length=0.01", "proc.cpu=true"] + NO_PLOTS
     args = tcompose(CONFIG_DIR, over)
     assert args.task.precision == "double" and args.task.relative_order == 8
     assert args.task.write_during_process
@@ -68,9 +69,8 @@ def test_verification_run_matches_jax(tmp_path, experiment):
                            shallow=False), rel
     for d in (jdir, tdir):  # compared: the rest of the run dirs as the slice tests
         shutil.rmtree(os.path.join(d, "0"))
-    # the JAX package names its timing log by proc.cpu (false here), the port
-    # by the device that ran the batch (the CPU)
-    os.rename(os.path.join(jdir, "tpu_time.txt"), os.path.join(jdir, "cpu_time.txt"))
+    # the JAX package names its timing log by proc.cpu, the port by the
+    # device that ran the batch: cpu_time.txt in both
     _check_common(jdir, tdir)
     (item,) = _items(tdir)
     jz, tz = _bundles(jdir, tdir, item)
@@ -133,3 +133,15 @@ def test_write_during_process_follows_the_engine(tmp_path):
             w = np.asarray(w, np.float64).reshape(-1)
             assert w.shape == z["uout"].shape
             assert np.abs(w - np.clip(z["uout"], -1, 1)).max() <= 1.0 / 32767
+
+
+def test_double_precision_without_a_card_raises(tmp_path, monkeypatch):
+    """A float64 run asks for the card unless ``proc.cpu=true``: on a host
+    without one, linear-string at its own ``task.precision=double`` stops
+    before it simulates instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = tcompose(CONFIG_DIR, ["experiment=linear-string", "task.length=0.01"] + NO_PLOTS)
+    assert args.task.precision == "double" and not args.proc.cpu
+    with pytest.raises(RuntimeError, match="proc.cpu=true"):
+        tsim.run(args, str(tmp_path), "pluck", 1)
+    assert not os.path.exists(os.path.join(tmp_path, "0-0"))

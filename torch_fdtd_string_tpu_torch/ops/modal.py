@@ -1,14 +1,69 @@
 """Modal additive synthesis.
 
-Port of ``torch_fdtd_string_tpu/ops/modal.py``.  Only the host cosine bank
-of the fused dataset path is ported; the device banks ``modal_synth``,
-``harmonic_synth`` and ``modal_synth_nyquist`` wait for the DMSP slice and
-the classic preprocessing path (ROADMAP Queue 1 items 8 and 9).
+Port of ``torch_fdtd_string_tpu/ops/modal.py``: the phase-accumulating
+cosine and sine banks of the DMSP synthesizer (reference
+``src/utils/ddsp.py:132-149``), evaluated as one running sum (in float64,
+wrapped; :func:`phase_sum`) and a reduction over modes, and the host
+cosine bank of the fused dataset path.  The
+Nyquist-masked device bank ``modal_synth_nyquist`` waits for the classic
+preprocessing path (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+import torch
+
+
+def phase_sum(freqs, dim=-2):
+    """The running sum of per-sample phase increments along ``dim``,
+    accumulated in float64; below float64 it is wrapped to [0, 2 pi) before
+    it is rounded to the input's dtype.
+
+    A float32 running sum over a one-second item reaches 1e5 rad, which
+    float32 resolves only to ~8e-3 rad, and CUDA's cumsum accumulates
+    float32 in float32: there the phase of 48,000 varying increments drifts
+    by ~0.5 rad (the CPU's accumulates in float64).  Wrapped, the phase
+    keeps ~5e-7 rad on every device.
+    """
+    phase = torch.cumsum(freqs, dim=dim, dtype=torch.float64)
+    if freqs.dtype == torch.float64:
+        return phase
+    return torch.remainder(phase, 2 * math.pi).to(freqs.dtype)
+
+
+def modal_synth(freqs, coefs, damps):
+    """Damped cosine bank.
+
+    Args (broadcastable):
+      freqs: (..., Nt, n_modes) per-sample angular increments [rad/sample].
+      coefs: (..., Nt|1, n_modes) mode amplitudes.
+      damps: (..., Nt, 1) damping envelope.
+    Returns (..., Nt, 1): sum_n cos(cumsum_t freqs) * coefs * damps, the
+    phase from :func:`phase_sum`.
+    """
+    return (torch.cos(phase_sum(freqs)) * coefs * damps).sum(-1, keepdim=True)
+
+
+def harmonic_synth(f0, amplitudes, sr):
+    """Sine bank at integer multiples of f0 (reference ddsp.py:132-137).
+
+    f0: (..., Nt, 1) in Hz; amplitudes: (..., Nt, n_harm).  The
+    fundamental's phase from :func:`phase_sum` (a wrapped phase times an
+    integer is the same angle).
+    """
+    n_harm = amplitudes.shape[-1]
+    omega = phase_sum(2 * math.pi * f0 / sr)
+    omegas = omega * torch.arange(1, n_harm + 1, dtype=f0.dtype, device=f0.device)
+    return (torch.sin(omegas) * amplitudes).sum(-1, keepdim=True)
+
+
+def remove_above_nyquist_mode(amplitudes, frequencies_hz, sr):
+    """Suppress modes above Nyquist (reference process_training_data.py:45-50)."""
+    aa = (frequencies_hz < sr / 2).to(amplitudes.dtype) + 1e-4
+    return amplitudes * aa
 
 
 def modal_synth_nyquist_np(freq_tv, amps, damp, sr):

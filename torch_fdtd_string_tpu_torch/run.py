@@ -5,8 +5,14 @@
 
 Takes the same overrides as the JAX package's ``run.py`` and composes the
 same config tree (``torch_fdtd_string_tpu/configs``, read as YAML by file
-path).  Only the ``proc.simulate`` branch is ported; the other ``proc.*``
+path).  The ``proc.simulate`` branch and the ``proc.test`` branch (the
+DMSP synthesizer's scoring of a test split, ``tasks/trainer.py::evaluate``,
+on the card unless ``proc.cpu=true``) are ported; the other ``proc.*``
 branches raise ``NotImplementedError``.
+
+    python -m torch_fdtd_string_tpu_torch.run experiment=synth-dmsp \
+        proc.train=false proc.test=true task.plot=false \
+        task.load_dir=results task.load_name=<corpus> task.save_name=<run>
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ from shutil import copyfile
 
 import numpy as np
 
-from torch_fdtd_string_tpu_torch.tasks import simulate
+from torch_fdtd_string_tpu_torch.tasks import simulate, trainer
 from torch_fdtd_string_tpu_torch.utils.config import compose, print_config
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -56,6 +62,8 @@ def main(argv=None):
         save_dir_name = args.task.result_dir
     if not os.path.isabs(args.task.root_dir):
         args.task.root_dir = os.path.join(ROOT, args.task.root_dir)
+    if args.task.get("load_dir") and not os.path.isabs(args.task.load_dir):
+        args.task.load_dir = os.path.join(ROOT, args.task.load_dir)
     save_dir = f"{args.task.root_dir}/{save_dir_name}"
 
     if args.task.measure_time:
@@ -63,8 +71,7 @@ def main(argv=None):
         args.task.save = False
         args.task.plot_state = False
 
-    for branch in ("evaluate", "summarize", "process_training_data", "train",
-                   "test"):
+    for branch in ("evaluate", "summarize", "process_training_data", "train"):
         if args.proc.get(branch):
             raise NotImplementedError(
                 f"proc.{branch} is not ported yet (see ROADMAP.md Queue 1)")
@@ -80,6 +87,10 @@ def main(argv=None):
         simulate.run(args, save_dir, model_name, n_samples=n_samples)
     else:
         print_config(args)
+
+    if args.proc.get("test"):
+        args.task.ckpt_dir = args.task.get("ckpt_dir") or save_dir
+        trainer.evaluate(args, save_dir)
     return save_dir
 
 

@@ -23,8 +23,9 @@ the width-bucketed string kernel over all steps
 
 A float64 run (``task.precision=double``: the verification experiments
 ``linear-string`` and ``nonlinear-string`` by default) takes the scan
-engine (``core/engine.py``) on the CPU in chunks of ``task.chunk_length``,
-as the JAX package runs every float64 run, and with
+engine (``core/engine.py``) on the run's device (the card unless
+``proc.cpu=true``) in chunks of ``task.chunk_length``, as the JAX package
+runs every float64 run, and with
 ``task.write_during_process`` rewrites each string's
 ``{save_dir}/{it}/{sr}-{b}/output{-u,-z,}.wav`` after every chunk; the
 string kernel's route ignores that option, as the JAX kernel route does.
@@ -44,10 +45,10 @@ each stage saved, the NaN and silence skips) and the timing log
 device-to-host bytes.
 
 The device is chosen explicitly: the CPU for ``proc.cpu=true`` (where a
-single-precision run takes the kernel's plain PyTorch version) or
-``task.precision=double`` (the engine); CUDA otherwise, and a host without
-a usable card raises.  Not ported yet, and refused with
-``NotImplementedError``: preset loading and plots (see ROADMAP.md).
+single-precision run takes the kernel's plain PyTorch version), CUDA
+otherwise in either precision, and a host without a usable card raises.
+Not ported yet, and refused with ``NotImplementedError``: preset loading
+and plots (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -73,14 +74,15 @@ from ..utils import wav as wavio
 
 
 def select_device(cpu=False, precision="single"):
-    """The CPU for ``proc.cpu=true`` or double precision, else CUDA; raises
-    when CUDA is asked for and the host has no usable card."""
-    if cpu or precision == "double":
+    """The CPU for ``proc.cpu=true``, else CUDA in either precision (an H100
+    runs float64 natively); raises when CUDA is asked for and the host has
+    no usable card."""
+    if cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "a single-precision run needs a CUDA card and torch finds none; "
-            "pass proc.cpu=true (or task.precision=double) to run on the CPU")
+            f"a {precision}-precision run needs a CUDA card and torch finds "
+            "none; pass proc.cpu=true to run on the CPU")
     return torch.device("cuda")
 
 

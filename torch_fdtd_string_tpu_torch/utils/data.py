@@ -4,8 +4,8 @@ Port of the parts of ``torch_fdtd_string_tpu/utils/data.py`` that the fused
 dataset path uses: the cached spline operators that resample a string's
 state to the training grid, and the per-x wav layout written by
 preprocessing (``ut-{x}.wav`` / ``ua-{x}.wav`` / ``vt.wav`` +
-``parameters.npz``, reference ``src/utils/data.py``).  The loaders and the
-collation helpers wait for the DMSP slice.
+``parameters.npz``, reference ``src/utils/data.py``), and ``load_wav``, the
+per-item reader of the DMSP datasets (``data/dataset.py``).
 """
 
 from __future__ import annotations
@@ -91,3 +91,21 @@ def save(dir_path, data_dict, sr=48000):
     tmp_path = f"{dir_path}/.parameters.tmp.npz"  # np.savez keeps the suffix
     np.savez(tmp_path, **rest)
     os.replace(tmp_path, f"{dir_path}/parameters.npz")
+
+
+def load_wav(wav_path, npz_path, trim=None, keys=("t", "kappa", "alpha"),
+             gain=1.0, wav=None):
+    """Load one target wav + selected parameter keys (reference data.py:9-22).
+
+    ``trim = (start, end)`` cuts the target and the ``t`` key; ``wav`` lets
+    a caller that already read the file pass the samples in."""
+    out = {}
+    res = np.load(npz_path)
+    for key in keys:
+        val = res[key]
+        if trim is not None and key == "t":
+            val = val[trim[0]:trim[1]]
+        out[key] = val
+    w = wavio.read(wav_path)[0] if wav is None else wav
+    out["target"] = gain * (w[trim[0]:trim[1]] if trim is not None else w)
+    return out
