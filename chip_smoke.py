@@ -40,7 +40,7 @@ Phases; any failure exits non-zero:
 10. the corpus recipe at B=48 (``tools/gen_watchdog.py``'s train split):
    8 kept columns per item, compact keys, no run-dir wavs, audio-s/s;
 11. the rescue ladder, fused: the corpus recipe with ``task.rescue_nan=true``
-   (B=48), at a length cut so that the f64 stage stays within about four
+   (B=48), at a length cut so that the f64 stage stays within about two
    minutes (from a 256-step timing of the f64 rescue taken first, on the
    host's CPU and, for the record, on the card): at least one first-pass
    NaN, the counter identity per batch, every item finite, every
@@ -79,8 +79,26 @@ Phases; any failure exits non-zero:
    float64 repair: ``experiment=linear-string`` at its own double
    precision (480 steps) on the card and with ``proc.cpu=true``, the
    written ``state_u`` within 1e-9 of scale, ms per step on each.
+18. DMSP training at synth-dmsp's full width: a fresh corpus of phase 10's
+   recipe (two batches of 48, ``proc.seed=1818``), split by
+   ``tools/make_splits`` (8 strings to valid, 8 to test, the rest to
+   train); ``python -m torch_fdtd_string_tpu_torch.run
+   experiment=synth-dmsp proc.train=true proc.test=true task.plot=false
+   model.mode_estimator=physics task.total_epoch=2`` through ``run.main``
+   (batch 128, radam under noam): the step count, ``profile.json``, every
+   valid and test record finite, ``BEST``, ``step_<n>.pt`` and
+   ``optstate_<n>.pt``, both score tables complete and finite, the device
+   cache's bytes and build time; then ``task.resume=true
+   task.total_epoch=3``: the step goes on, the optimizer state loaded
+   equals the saved one bit for bit, its first learning rate is
+   ``schedule(step)``; one train step card against CPU for mlp and
+   physics at batch 128 (float64 per tensor, float32 on the losses and
+   the whole gradient), and where the float32 gradient's distance from
+   float64 comes from (by criterion, ``modal_synth`` in float64, the FM
+   frequencies rounded, l1's floor); the train step's ms (forward,
+   backward, optimizer), items/s and peak device memory.
 
-Phases 13-17 run after phase 10 and before the ladder phases 11-12, whose
+Phases 13-18 run after phase 10 and before the ladder phases 11-12, whose
 length follows the time left.
 
 Phase 2 also prints ptxas's registers and spills of every instance.
@@ -227,9 +245,10 @@ LADDER_CLASSIC = ["experiment=nsynth-like", "task.fuse_preprocess=false",
                   "task.num_samples=24", "task.batch_size=24", "proc.seed=97"]
 # seconds the f64 stage of phases 11 and 12 may take, each, and the factor
 # on a 256-step timing of the first pass's NaN strings: a string can cost
-# more per step (more GMRES restarts) as it nears its divergence.  Phase 12
-# gets less (30 s at least) when the run would not end by RUN_TARGET_S
-F64_BUDGET_S, F64_SAFETY, RUN_TARGET_S = 180.0, 1.25, 1000.0
+# more per step (more GMRES restarts) as it nears its divergence.  Each
+# gets less (30 s at least) when the run would not end by RUN_TARGET_S;
+# phase 11 leaves LADDER12_S for its own timings and phase 12
+F64_BUDGET_S, F64_SAFETY, RUN_TARGET_S, LADDER12_S = 120.0, 1.25, 1000.0, 150.0
 # NVIDIA H100 SXM data sheet: HBM rate, float32 rate outside the tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # float operations per live grid point, counted in csrc/string_step.cu: the
@@ -273,6 +292,24 @@ PHASE_FREE_BOUND, WAVE_BOUND, WAVE64_BOUND = 2.5e-4, 2e-3, 2.5e-10
 MODALS_ATOL, F64_REL = 1e-6, 1e-9
 F64_RUN = ["experiment=linear-string", "task.length=0.01", "task.plot=false",
            "task.plot_state=false"]
+# phase 18: DMSP training at synth-dmsp's full width on a fresh corpus of
+# phase 10's recipe, two batches of 48 under another seed (phase 17's split
+# stays as it is): 8 strings each to valid and test, the rest to train;
+# physics (r5b's estimator), batch 128.  One train step card against CPU
+# at the main path's batch of 128: float64 losses LOSS64, per-tensor
+# gradients GRAD64 and parameters after the step PARAM64 (the same
+# algorithm on both devices; fixed before the first reading); float32
+# losses at the CPU tests' LOSS32 (tests/test_torch_dmsp_train.py), the
+# float32 whole gradient card against CPU within GRAD32 of its scale
+# (2.5x the first reading at B=128, mlp's; physics reads 1.5x it,
+# PERF.md), and the card's float32 gradient no further from float64 than
+# F32_RATIO times the CPU's (+1e-3)
+TRAIN_CORPUS = [o for o in CORPUS48 if not o.startswith("task.num_samples")] + [
+    "task.num_samples=96", "proc.seed=1818"]
+DMSP_TRAIN = ["experiment=synth-dmsp", "proc.train=true", "proc.test=true", "task.plot=false",
+              "model.mode_estimator=physics"]
+DMSP_TRAIN_HELD, DMSP_TRAIN_BATCH = 8, 128
+LOSS64, GRAD64, PARAM64, LOSS32, GRAD32, F32_RATIO = 1e-9, 1e-6, 1e-7, 5e-4, 0.4, 3.0
 # phase 16's engine point (batch, seconds): the eager engine takes tens of
 # ms per step on the card
 ENGINE_POINT = (4, 0.005)
@@ -1588,6 +1625,428 @@ def drive_dmsp(corpus_prep, dev, card):
           f"its corpus came through phase 10's bucketed launches")
 
 
+def train_corpus_split(prep_dir):
+    """Phase 18's split of its corpus: DMSP_TRAIN_HELD strings each to
+    valid and test, the rest to train.  Returns the item counts."""
+    from torch_fdtd_string_tpu_torch.tools.make_splits import make_splits
+
+    items = sorted(d for d in os.listdir(prep_dir)
+                   if os.path.exists(os.path.join(prep_dir, d, "parameters.npz")))
+    n_cols = len([f for f in os.listdir(os.path.join(prep_dir, items[0]))
+                  if f.startswith("ut-")])
+    counts = make_splits(prep_dir, valid_n=DMSP_TRAIN_HELD, test_n=DMSP_TRAIN_HELD)
+    if counts["train"] * n_cols < 3 * DMSP_TRAIN_BATCH:
+        raise AssertionError(f"[18] {counts['train']} train strings x {n_cols} columns: "
+                             f"fewer than 3 steps of {DMSP_TRAIN_BATCH} per epoch")
+    return {k: v * n_cols for k, v in counts.items()}
+
+
+def train_run(over, run_dir):
+    """One ``run.main`` of phase 18; returns its wall and its metrics
+    records."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+
+    t0 = time.perf_counter()
+    save_dir = port_run.main(over + [f"task.root_dir={os.path.dirname(run_dir)}",
+                                     f"task.save_name={os.path.basename(run_dir)}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(save_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return wall, recs
+
+
+def check_train_records(tag, run_dir, recs, spe, epochs, n_test, card):
+    """Phase 18's checks of a run directory after ``epochs`` epochs of
+    ``spe`` steps: the valid and test records (finite), profile.json's
+    train_step count, BEST, the last step's checkpoint and optimizer
+    state, both score tables complete and finite."""
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+
+    valid = [r for r in recs if r.get("split") == "valid"]
+    tests = [r for r in recs if r.get("split") == "test"]
+    steps = [r["step"] for r in valid]
+    if steps != [spe * (e + 1) for e in range(epochs)]:
+        raise AssertionError(f"[18] {tag}: valid records at steps {steps}, not every {spe}")
+    for r in valid + tests:
+        bad = {k: v for k, v in r.items() if isinstance(v, float) and not np.isfinite(v)}
+        if bad:
+            raise AssertionError(f"[18] {tag}: not finite in {r['split']} record: {bad}")
+    if len([r for r in tests if "test/loss" in r]) != epochs:
+        raise AssertionError(f"[18] {tag}: {len(tests)} test records for {epochs} epochs")
+    with open(os.path.join(run_dir, "profile.json")) as f:
+        prof = json.load(f)
+    ckdir = trainer._ckpt_dir(run_dir)
+    last = spe * epochs
+    for name in ("BEST", f"step_{last}.pt", f"optstate_{last}.pt"):
+        if not os.path.exists(os.path.join(ckdir, name)):
+            raise AssertionError(f"[18] {tag}: no {name} in {ckdir}")
+    tables = {}
+    for name in ("output", "modals"):
+        ids, rows = read_scores(os.path.join(run_dir, "score", f"{name}.txt"))
+        want = [f"0-{i // DMSP_BATCH}-{i % DMSP_BATCH}" for i in range(n_test)] + ["# mean"]
+        if ids != want or not np.isfinite(rows).all():
+            raise AssertionError(f"[18] {tag}: {name}.txt has {len(ids)} rows, finite "
+                                 f"{np.isfinite(rows).all()}")
+        tables[name] = rows[-1]
+    with open(os.path.join(ckdir, "BEST")) as f:
+        best = f.read().split()
+    print(f"[18] {tag}: steps {steps}, profile.json train_step {prof['train_step']}, "
+          f"train_epoch mean {prof['train_epoch']['mean_s']:.2f} s; valid/loss "
+          + ", ".join(f"{r['valid/loss']:.4f}" for r in valid) + "; test/loss "
+          + ", ".join(f"{r['test/loss']:.4f}" for r in tests if "test/loss" in r)
+          + f"; BEST step {best[0]}; lr logged {valid[-1]['lr']:.4g}; epoch walls "
+          + ", ".join(f"{r['epoch_time']:.2f} s" for r in valid)
+          + f"; scored {n_test} test items, mean si_sdr {tables['output'][5]:.3f} dB "
+          f"(modal baseline {tables['modals'][5]:.3f} dB) [{card}]")
+    return prof
+
+
+def one_train_step(model, args, prep, device, dtype):
+    """One train step of a copy of ``model`` in ``dtype`` on ``device``
+    (synth-dmsp's optimizer and losses); returns the losses, the
+    gradients and the parameters after the step, on the host, and the
+    step's seconds."""
+    import copy
+
+    from torch_fdtd_string_tpu_torch.models import optim as optlib
+    from torch_fdtd_string_tpu_torch.models.losses import build_loss_registry
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+
+    sr = args.task.sr
+    registry = build_loss_registry(sr, int(args.task.train_lens * sr))
+    m = copy.deepcopy(model).to(device, dtype)
+    opt, _, _ = optlib.build(m.parameters(), args.optimizer._name_, dict(args.optimizer),
+                             args.scheduler._name_, dict(args.scheduler))
+    step = S.make_train_step(m, opt, registry, list(args.task.loss_criteria), m.inharmonic)
+    p = {k: v.to(dtype) for k, v in S.to_device(prep, device).items()}
+    t0 = time.perf_counter()
+    _, losses = step(S.TrainState(m, opt, 0, torch.Generator(device=device)), p)
+    losses = {k: float(v) for k, v in losses.items()}
+    secs = time.perf_counter() - t0
+    grads = {k: (q.grad if q.grad is not None else torch.zeros_like(q)).detach().double().cpu()
+             for k, q in m.named_parameters()}
+    params = {k: q.detach().double().cpu() for k, q in m.named_parameters()}
+    return losses, grads, params, secs
+
+
+def train_step_card_vs_cpu(est, args, prep, dev, card):
+    """Phase 18: one train step of the full-width model from the same
+    weights (seed 18) on the same batch of DMSP_TRAIN_BATCH, on the card
+    and on the CPU, the noise fixed to one seeded array.  float64: each
+    loss within LOSS64 (relative, with a floor of 1e-3 of the summed
+    loss), every parameter's gradient within GRAD64 of its tensor's scale,
+    the parameters after the step within PARAM64.  float32: each loss
+    within LOSS32, the whole gradient within GRAD32 of its scale, and the
+    card's float32 gradient no further from the card's float64 one than
+    F32_RATIO times the CPU's distance, plus 1e-3.  Then
+    ``gradient_precision`` on the card."""
+    from torch_fdtd_string_tpu_torch.models import synthesizer
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+
+    model = S.build_model(args, torch.Generator().manual_seed(18))
+    draw = synthesizer.uniform
+    synthesizer.uniform = lambda shape, generator, device, dtype: torch.as_tensor(
+        np.random.default_rng(180).random(tuple(shape), dtype=np.float32),
+        device=device).to(dtype)
+    runs = {}
+    try:
+        for dtype in (torch.float64, torch.float32):
+            for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                runs[where, dtype] = one_train_step(model, args, prep, d, dtype)
+        precision = gradient_precision(model, args, prep, dev)
+    finally:
+        synthesizer.uniform = draw
+
+    def loss_err(a, b):
+        # relative to each loss, with a floor of 1e-3 of the summed loss:
+        # the physics estimator meets the dataset's modes, and its modeamps
+        # and modefreq losses are ~1e-10
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-3 * abs(b["loss"])) for k in b)
+
+    f64, f32 = torch.float64, torch.float32
+    (l64c, g64c, p64c, s64c), (l64h, g64h, p64h, s64h) = runs["card", f64], runs["cpu", f64]
+    (l32c, g32c, p32c, s32c), (l32h, g32h, p32h, s32h) = runs["card", f32], runs["cpu", f32]
+    errs = {
+        "loss64": loss_err(l64c, l64h),
+        "grad64": max(rel_diff(g64h[k], g64c[k]) for k in g64h),
+        "param64": max(rel_diff(p64h[k], p64c[k]) for k in p64h),
+        "loss32": loss_err(l32c, l32h),
+        "grad32": rel_diff(flat(g32h), flat(g32c)),
+        "param32": max(rel_diff(p32h[k], p32c[k]) for k in p32h),
+        "card32_to_64": rel_diff(flat(g64c), flat(g32c)),
+        "cpu32_to_64": rel_diff(flat(g64h), flat(g32h)),
+    }
+    worst = sorted(((rel_diff(g64c[k], g32c[k]), k) for k in g64c), reverse=True)[:3]
+    print(f"[18] {est}: one train step at B={prep['gt'].shape[0]}, card against CPU (same "
+          f"weights, noise fixed), relative to scale: float64 losses {errs['loss64']:.2e} "
+          f"(bound {LOSS64}), gradients {errs['grad64']:.2e} per tensor (bound {GRAD64}), "
+          f"parameters after the step {errs['param64']:.2e} (bound {PARAM64}); float32 "
+          f"losses {errs['loss32']:.2e} (bound {LOSS32}), whole gradient {errs['grad32']:.3e} "
+          f"(bound {GRAD32}), parameters after the step {errs['param32']:.2e} (not held); "
+          f"the float32 gradient against the float64 one: card {errs['card32_to_64']:.3e}, "
+          f"CPU {errs['cpu32_to_64']:.3e} (card within {F32_RATIO}x the CPU's + 1e-3), worst "
+          "tensors on the card " + ", ".join(f"{k} {v:.2e}" for v, k in worst)
+          + f"; step float32 {s32c:.2f} s card (first call) / {s32h:.2f} s CPU, float64 "
+          f"{s64c:.2f} / {s64h:.2f} s [{card}]")
+    print(f"[18] {est}: the float32 gradient's distance from float64 on the card at "
+          f"B={prep['gt'].shape[0]}, by criterion: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in precision["by_criterion"].items())
+          + f"; all criteria {precision['f32']:.3e}, with modal_synth in float64 "
+          f"{precision['modal64']:.3e}; float64 with the FM frequencies rounded to float32 "
+          f"values moves the float64 gradient by {precision['freq_rounded']:.3e}; the FM "
+          f"frequencies in float32 are {precision['freq_rel']:.2e} (relative, per element) "
+          f"off float64, the phase at the item's end {precision['phase_rad']:.2e} rad; items "
+          f"whose mean square is below float32's eps (l1's floor): output "
+          f"{precision['quiet'][0]}, target {precision['quiet'][1]}; float64 with l1's floor at "
+          f"float32's eps moves the float64 gradient by {precision['l1_floor32']:.3e}; float32 "
+          f"with l1's floor at float64's eps is {precision['f32_l1_floor64']:.3e} off float64 "
+          f"[{card}]")
+    for key, bound in (("loss64", LOSS64), ("grad64", GRAD64), ("param64", PARAM64),
+                       ("loss32", LOSS32), ("grad32", GRAD32)):
+        if not errs[key] <= bound:
+            raise AssertionError(f"[18] {est}: {key} card vs CPU {errs[key]:.3e} > {bound}")
+    if not errs["card32_to_64"] <= F32_RATIO * errs["cpu32_to_64"] + 1e-3:
+        raise AssertionError(f"[18] {est}: the card's float32 gradient is "
+                             f"{errs['card32_to_64']:.3e} off float64, the CPU's "
+                             f"{errs['cpu32_to_64']:.3e}")
+
+
+def flat(tensors):
+    """A dict of tensors as one flat float64 tensor, in the dict's order."""
+    return torch.cat([v.detach().double().cpu().flatten() for v in tensors.values()])
+
+
+def gradient_precision(model, args, prep, dev):
+    """Phase 18: where the float32 gradient's distance from float64 comes
+    from, on the card at the main path's batch (the caller fixes the
+    noise).  Each criterion's gradient in float32 against float64; all
+    criteria with ``modal_synth`` (the phase sum, its backward, the cosine
+    bank) in float64 inside a float32 model; the float64 gradient with the
+    FM block's frequencies rounded to float32 values (one rounding of the
+    same point); how far the FM frequencies and the phase they integrate
+    to over the item drift in float32."""
+    import copy
+
+    from torch_fdtd_string_tpu_torch.models import synthesizer
+    from torch_fdtd_string_tpu_torch.models.losses import build_loss_registry
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+
+    registry = build_loss_registry(args.task.sr, int(args.task.train_lens * args.task.sr))
+    criteria = list(args.task.loss_criteria)
+    modal_synth, modulate = synthesizer.modal_synth, synthesizer.DMSPCore.modulate
+    freqs, power = {}, {}
+
+    def modal64(f, c, d):
+        return modal_synth(f.double(), c.double(), d.double()).to(f.dtype)
+
+    def l1_floored(preds, target, eps):
+        # losses.l1_loss with its floor on the mean square at ``eps`` in
+        # place of finfo(dtype).eps
+        eps = preds.new_tensor(eps)
+        rms = [torch.sqrt(torch.maximum(torch.mean(x**2, -1, keepdim=True), eps))
+               for x in (preds, target)]
+        return torch.mean(torch.abs(preds / rms[0] - target / rms[1]))
+
+    def grad(dtype, crit, f64_modal=False, round_freq=False, l1_eps=None):
+        reg = dict(registry)
+        if l1_eps is not None:
+            reg["l1"] = (lambda a, b: l1_floored(a, b, l1_eps), registry["l1"][1])
+
+        def modulated(self, *a):
+            f, c = modulate(self, *a)
+            if round_freq:
+                f = f + (f.float().double() - f).detach()
+            freqs[dtype] = f.detach().double()
+            return f, c
+
+        m = copy.deepcopy(model).to(dev, dtype)
+        p = {k: v.to(dtype) for k, v in S.to_device(prep, dev).items()}
+        synthesizer.DMSPCore.modulate = modulated
+        synthesizer.modal_synth = modal64 if f64_modal else modal_synth
+        try:
+            out = S.forward_outputs(m, p, None, m.inharmonic)
+            if dtype == torch.float64:
+                power[dtype] = torch.mean(out["preds"].detach() ** 2, -1)
+            loss = S.compute_losses(out, reg, crit)[0]
+            if loss.requires_grad:  # not the physics estimator's own mode losses
+                loss.backward()
+        finally:
+            synthesizer.DMSPCore.modulate, synthesizer.modal_synth = modulate, modal_synth
+        return flat({k: q.grad if q.grad is not None else torch.zeros_like(q)
+                     for k, q in m.named_parameters()})
+
+    f64, f32 = torch.float64, torch.float32
+    by_criterion = {}
+    for c in criteria:
+        g = grad(f64, [c])
+        if g.abs().max() > 0:
+            by_criterion[c] = rel_diff(g, grad(f32, [c]))
+    ref = grad(f64, criteria)
+    g32 = grad(f32, criteria)
+    drift = freqs[f32] - freqs[f64]  # (b, frames, modes) rad/sample
+    eps32, eps64 = torch.finfo(f32).eps, torch.finfo(f64).eps
+    target_power = torch.mean(torch.as_tensor(prep["gt"], dtype=f64) ** 2, -1)
+    return {
+        # l1_loss floors each item's mean square at finfo(dtype).eps
+        "quiet": (int((power[f64] < eps32).sum()), int((target_power < eps32).sum())),
+        "l1_floor32": rel_diff(ref, grad(f64, criteria, l1_eps=eps32)),
+        "f32_l1_floor64": rel_diff(ref, grad(f32, criteria, l1_eps=eps64)),
+        "by_criterion": by_criterion,
+        "f32": rel_diff(ref, g32),
+        "modal64": rel_diff(ref, grad(f32, criteria, f64_modal=True)),
+        "freq_rounded": rel_diff(ref, grad(f64, criteria, round_freq=True)),
+        "freq_rel": float((drift.abs() / freqs[f64].abs().clamp_min(1e-30)).max()),
+        # the phase sums the frequencies upsampled to the sample rate
+        "phase_rad": float((drift.sum(1) * args.model.block_size).abs().max()),
+    }
+def train_step_timing(args, prep, dev, card):
+    """Phase 18: the train step at B=DMSP_TRAIN_BATCH on the card, CUDA
+    events, mean of 5 after a warm-up, whole and split into the forward
+    (with the losses), the backward and the optimizer; peak device
+    memory."""
+    from torch_fdtd_string_tpu_torch.models import optim as optlib
+    from torch_fdtd_string_tpu_torch.models.losses import build_loss_registry
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+
+    sr = args.task.sr
+    registry = build_loss_registry(sr, int(args.task.train_lens * sr))
+    criteria = list(args.task.loss_criteria)
+    model = S.build_model(args, torch.Generator().manual_seed(18), dev)
+    opt, _, _ = optlib.build(model.parameters(), args.optimizer._name_, dict(args.optimizer),
+                             args.scheduler._name_, dict(args.scheduler))
+    state = S.TrainState(model, opt, 0, torch.Generator(device=dev).manual_seed(0))
+    step = S.make_train_step(model, opt, registry, criteria, model.inharmonic)
+    p = S.to_device(prep, dev)
+
+    def forward():
+        out = S.forward_outputs(model, p, state.generator, model.inharmonic)
+        return S.compute_losses(out, registry, criteria)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    whole = cuda_ms(lambda: step(state, p), reps=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd = cuda_ms(forward, reps=5)
+    split = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss = forward()
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(split, zip(ev, ev[1:])):
+            split[k].append(a.elapsed_time(b))
+    split = {k: float(np.mean(v[1:])) for k, v in split.items()}  # the first warms up
+    B = prep["gt"].shape[0]
+    print(f"[18] train step at B={B}, Nt={prep['gt'].shape[-1]} (physics, synth-dmsp's "
+          f"widths, radam): {whole:.2f} ms (CUDA events, mean of 5) = {B / whole * 1e3:.1f} "
+          f"train items/s; forward with the losses {split['forward']:.2f} ms "
+          f"(alone {fwd:.2f}), backward {split['backward']:.2f} ms, optimizer "
+          f"{split['optimizer']:.2f} ms (mean of 5 after one); peak device memory {peak:.2f} "
+          f"GiB [{card}]")
+    return whole, split, peak
+
+
+def drive_dmsp_train(dev, card):
+    """Phase 18: DMSP training at synth-dmsp's full width (physics, batch
+    128, radam under noam) on a fresh corpus of phase 10's recipe."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.data.dataset import DataLoader, Trainset
+    from torch_fdtd_string_tpu_torch.models import optim as optlib
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    corpus = drive_fused(18, "corpus recipe B=48, two batches (seed 1818)", TRAIN_CORPUS,
+                         PREP_KEYS_CORPUS, 8, card)
+    prep_dir = corpus["save_dir"] + "-prep"
+    load_dir, load_name = os.path.dirname(prep_dir), os.path.basename(prep_dir)
+    n = train_corpus_split(prep_dir)
+    spe = n["train"] // DMSP_TRAIN_BATCH
+    over = DMSP_TRAIN + [f"task.load_dir={load_dir}", f"task.load_name={load_name}"]
+    args = compose(port_run.CONFIG_DIR, over)
+    if (args.task.batch_size, args.model.hidden_dim, args.model.n_modes) != (
+            DMSP_TRAIN_BATCH, 512, 40):
+        raise AssertionError(f"[18] not synth-dmsp's full width: {args.task.batch_size}, "
+                             f"{args.model.hidden_dim}, {args.model.n_modes}")
+    print(f"[18] {load_name}: items {n}: {spe} steps of {DMSP_TRAIN_BATCH} per epoch")
+    run_dir = os.path.join(ROOT, "results", "chip_smoke_18_train")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+    caches = []
+    device_cache = trainer._device_cache
+
+    def logged_cache(*a, **kw):
+        gather, n_items = device_cache(*a, **kw)
+        caches.append((n_items, gather.nbytes, gather.seconds))
+        return gather, n_items
+
+    trainer._device_cache = logged_cache
+    try:
+        wall1, recs = train_run(over + ["task.total_epoch=2"], run_dir)
+    finally:
+        trainer._device_cache = device_cache
+    check_train_records("run 1 (2 epochs)", run_dir, recs, spe, 2, n["test"], card)
+    print(f"[18] run 1: proc.train + proc.test wall {wall1:.2f} s; device cache "
+          f"{'used' if caches else 'NOT used'}: " + ", ".join(
+              f"{k} items {b / 1e6:.1f} MB in {s:.2f} s" for k, b, s in caches)
+          + f"; {2 * spe * DMSP_TRAIN_BATCH / wall1:.1f} train items/s over the whole run "
+          f"[{card}]")
+    if len(caches) != 3:
+        raise AssertionError(f"[18] the device cache was not used: {caches}")
+
+    # run 2: resume for a third epoch; the optimizer state loaded equals
+    # the saved one bit for bit, the count goes on from the step
+    restored = {}
+    restore = trainer.restore
+
+    def checked_restore(save_dir, model, optimizer):
+        step = restore(save_dir, model, optimizer)
+        saved = torch.load(os.path.join(trainer._ckpt_dir(save_dir), f"optstate_{step}.pt"),
+                           map_location="cpu", weights_only=True)
+        got = optimizer.state_dict()
+        same = got["param_groups"] == saved["param_groups"] and all(
+            torch.equal(got["state"][i][k].cpu(), v)
+            for i, s in saved["state"].items() for k, v in s.items())
+        restored.update(step=step, same=same, count=optimizer.count, lr=optimizer.lr())
+        return step
+
+    trainer.restore = checked_restore
+    try:
+        wall2, recs = train_run(over + ["task.total_epoch=3", "task.resume=true"], run_dir)
+    finally:
+        trainer.restore = restore
+    schedule = optlib.get_schedule(args.scheduler._name_, args.optimizer.lr,
+                                   dict(args.scheduler))
+    print(f"[18] run 2 (resume, 3 epochs): wall {wall2:.2f} s; restored step "
+          f"{restored.get('step')}, optimizer state equal to the saved bit for bit "
+          f"{restored.get('same')}, count {restored.get('count')}, first lr "
+          f"{restored.get('lr')} = schedule({restored.get('step')}) "
+          f"{schedule(restored.get('step', -1))}")
+    if not (restored.get("step") == 2 * spe and restored["same"]
+            and restored["count"] == 2 * spe and restored["lr"] == schedule(2 * spe)):
+        raise AssertionError(f"[18] resume: {restored}")
+    check_train_records("run 2 (resumed)", run_dir, recs, spe, 3, n["test"], card)
+
+    first = next(iter(DataLoader(Trainset(load_dir, load_name), DMSP_TRAIN_BATCH)))
+    prep = S.prepare_batch(first, args.model.n_modes, args.model.block_size, args.task.sr)
+    prep.pop("analytic")
+    for est in ("mlp", "physics"):
+        est_args = compose(port_run.CONFIG_DIR, over + [f"model.mode_estimator={est}"])
+        train_step_card_vs_cpu(est, est_args, prep, dev, card)
+    whole, split, peak = train_step_timing(args, prep, dev, card)
+    print(f"[18] paths: proc.train (synth-dmsp, full width, physics, batch "
+          f"{DMSP_TRAIN_BATCH}) {3 * spe} steps over two runs, resumed once; the training "
+          f"path reaches no pallas_call, so no kernel of its own")
+    return dict(step_ms=whole, split=split, peak=peak)
+
+
 def add_gmres(acc, by_spec):
     for spec, n in by_spec.items():
         if spec.endswith("-gmres"):
@@ -1982,8 +2441,13 @@ def main():
     drive_dmsp(corpus["save_dir"] + "-prep", dev, card)
     print(f"[17] done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 18. DMSP training at full width on a fresh corpus ----------------------
+    drive_dmsp_train(dev, card)
+    print(f"[18] done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- 11-12. the rescue ladder ----------------------------------------------
-    length = ladder_length(11, LADDER_FUSED, dev, card, F64_BUDGET_S, on_card=True)
+    left = max(RUN_TARGET_S - (time.perf_counter() - t_start) - LADDER12_S, 30.0)
+    length = ladder_length(11, LADDER_FUSED, dev, card, min(F64_BUDGET_S, left), on_card=True)
     lad = drive_fused(11, "rescue ladder, corpus recipe B=48 (fused)",
                       LADDER_FUSED + [f"task.length={length}"], PREP_KEYS_CORPUS, 8, card)
     check_ladder(11, lad["stats"]["batches"], lad["task"], lad["wall"], card,

@@ -165,21 +165,35 @@ class DataLoader:
         q: queue.Queue = queue.Queue(maxsize=4)
         stop = object()
         errors = []
+        closed = threading.Event()
 
         def worker():
             try:
                 for b in batches:
+                    if closed.is_set():
+                        break
                     q.put(_collate([self.ds[int(i)] for i in b]))
             except BaseException as err:  # handed to the consumer
                 errors.append(err)
             finally:
                 q.put(stop)
 
-        threading.Thread(target=worker, daemon=True).start()
-        while True:
-            item = q.get()
-            if item is stop:
-                break
-            yield item
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    break
+                yield item
+        finally:
+            # a consumer that stops early (one batch taken) ends the worker:
+            # drain the queue until it sees the flag and exits
+            closed.set()
+            while thread.is_alive():
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
         if errors:
             raise errors[0]

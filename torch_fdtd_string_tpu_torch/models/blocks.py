@@ -64,7 +64,10 @@ class MLP(nn.Module):
     def forward(self, x):
         for i, layer in enumerate(self.layers):
             x = layer(x)
-            x = torch.clamp(x, min=0) + self.prelu[i] * torch.clamp(x, max=0)
+            # maximum / minimum, not clamp: at x == 0 they split the
+            # gradient as jnp.maximum / jnp.minimum do
+            zero = x.new_zeros(())
+            x = torch.maximum(x, zero) + self.prelu[i] * torch.minimum(x, zero)
         return x
 
 

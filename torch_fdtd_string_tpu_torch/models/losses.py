@@ -52,8 +52,9 @@ def l1_loss(preds, target, scale_invariance=True, weight=1.0):
     """(Reference loss.py:161-175.)"""
     if scale_invariance:
         eps = torch.finfo(target.dtype).eps
-        p_rms = torch.sqrt(torch.clamp(torch.mean(preds**2, -1, keepdim=True), min=eps))
-        t_rms = torch.sqrt(torch.clamp(torch.mean(target**2, -1, keepdim=True), min=eps))
+        eps = target.new_tensor(eps)  # jnp.maximum's gradient at a tie
+        p_rms = torch.sqrt(torch.maximum(torch.mean(preds**2, -1, keepdim=True), eps))
+        t_rms = torch.sqrt(torch.maximum(torch.mean(target**2, -1, keepdim=True), eps))
         preds = preds / p_rms
         target = target / t_rms
     return weight * _l1(preds, target)

@@ -36,7 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.analytic import CACHE_DIR, StiffStringModes
+from ..core import analytic
+from ..core.analytic import StiffStringModes
 from ..utils import data as udata
 
 L_HALF = 0.5  # string on x in [-1/2, 1/2] (analytic.py grid convention)
@@ -52,7 +53,7 @@ def mu1_tables(kappa_lo, kappa_hi, n_per_fam=28, n_k=257):
     cancels catastrophically; ``mu2 = sqrt(mu1^2 + 2 ell)`` is the stable
     direction.  Host-built once with the sweep + LM refinement of
     ``core/analytic.StiffStringModes`` (~20 s for the default grid), cached
-    under ``CACHE_DIR`` and in-process.  The grid spans
+    under ``analytic.CACHE_DIR`` and in-process.  The grid spans
     [0.95 * kappa_lo, 1.05 * kappa_hi], so that config-range draws never
     clamp.
     """
@@ -64,7 +65,7 @@ def mu1_tables(kappa_lo, kappa_hi, n_per_fam=28, n_k=257):
 def _mu1_tables_cached(kappa_lo, kappa_hi, n_per_fam, n_k):
     lo, hi = 0.95 * kappa_lo, 1.05 * kappa_hi
     name = f"mu1tab_{lo:.6g}_{hi:.6g}_{n_per_fam}_{n_k}.npz"
-    path = os.path.join(CACHE_DIR, name)
+    path = os.path.join(analytic.CACHE_DIR, name)
     if os.path.exists(path):
         z = np.load(path)
         return z["kgrid"], z["even"], z["odds"]
@@ -80,7 +81,7 @@ def _mu1_tables_cached(kappa_lo, kappa_hi, n_per_fam, n_k):
                                       f"not {n_per_fam}")
             tabs[kind].append(solver._mu1(mu2[:n_per_fam]))
     even, odds = np.asarray(tabs["even"]), np.asarray(tabs["odds"])
-    os.makedirs(CACHE_DIR, exist_ok=True)
+    os.makedirs(analytic.CACHE_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}.npz"
     np.savez(tmp, kgrid=kgrid, even=even, odds=odds)
     os.replace(tmp, path)  # atomic: a concurrent process never reads a torn file
@@ -162,7 +163,9 @@ class PhysicsModeEstimator(nn.Module):
         tab = self.tab.to(u_0.dtype)
         b = u_0.shape[0]
         kap = kappa[:, 0, 0]  # (b,)
-        u = torch.clamp((kap - self.k0) / self.dk, 0.0, self.nk - 1.000001)
+        # jnp.clip's gradient at the ends: maximum, then minimum
+        u = torch.minimum(torch.maximum((kap - self.k0) / self.dk, kap.new_tensor(0.0)),
+                          kap.new_tensor(self.nk - 1.000001))
         i0 = torch.floor(u).long()
         w = (u - i0)[None, :, None]  # (1, b, 1)
         mu1 = tab[:, i0] * (1.0 - w) + tab[:, i0 + 1] * w  # (2, b, n)
@@ -175,8 +178,8 @@ class PhysicsModeEstimator(nn.Module):
         K = kappa[:, :, :, None] * gam
         sig = _sigma_scalar(t60, gamma, kappa * gamma)[..., None]
         m2 = mu1 * mu1
-        om = torch.sqrt(torch.clamp(m2 * m2 * K * K + m2 * gam * gam - sig * sig,
-                                    min=0.0))[..., 0]
+        om = torch.sqrt(torch.maximum(m2 * m2 * K * K + m2 * gam * gam - sig * sig,
+                                      m2.new_tensor(0.0)))[..., 0]
         om = om / self.sr  # (b, 2, n) rad/sample
 
         # amplitude fit: per-family least squares on the Na solver grid

@@ -5,13 +5,15 @@
 
 Takes the same overrides as the JAX package's ``run.py`` and composes the
 same config tree (``torch_fdtd_string_tpu/configs``, read as YAML by file
-path).  The ``proc.simulate`` branch and the ``proc.test`` branch (the
-DMSP synthesizer's scoring of a test split, ``tasks/trainer.py::evaluate``,
-on the card unless ``proc.cpu=true``) are ported; the other ``proc.*``
-branches raise ``NotImplementedError``.
+path).  The ``proc.simulate`` branch, the ``proc.train`` branch (the DMSP
+synthesizer's training, ``tasks/trainer.py::train``) and the
+``proc.test`` branch (its scoring of a test split,
+``tasks/trainer.py::evaluate``) are ported, on the card unless
+``proc.cpu=true``; the other ``proc.*`` branches raise
+``NotImplementedError``.
 
     python -m torch_fdtd_string_tpu_torch.run experiment=synth-dmsp \
-        proc.train=false proc.test=true task.plot=false \
+        proc.train=true proc.test=true task.plot=false \
         task.load_dir=results task.load_name=<corpus> task.save_name=<run>
 """
 
@@ -71,22 +73,32 @@ def main(argv=None):
         args.task.save = False
         args.task.plot_state = False
 
-    for branch in ("evaluate", "summarize", "process_training_data", "train"):
+    for branch in ("evaluate", "summarize", "process_training_data"):
         if args.proc.get(branch):
             raise NotImplementedError(
                 f"proc.{branch} is not ported yet (see ROADMAP.md Queue 1)")
 
-    if args.proc.simulate:
+    # a training run scores its own checkpoints (JAX run.py:146)
+    if args.proc.get("train") and args.proc.get("test") and args.task.get("ckpt_dir") is not None:
+        raise ValueError("task.ckpt_dir names another run's checkpoints; it cannot be given "
+                         "with proc.train=true proc.test=true")
+
+    if args.proc.simulate or args.proc.get("train"):
         os.makedirs(save_dir, exist_ok=True)
         backup_code(PKG_DIR, save_dir)
         print_config(args, os.path.join(save_dir, "config_tree.txt"))
+    else:
+        print_config(args)
+
+    if args.proc.simulate:
         model_name = (
             "random" if args.model.get("excitation") is None else args.model.excitation
         )
         n_samples = max(args.task.num_samples // args.task.batch_size, 1)
         simulate.run(args, save_dir, model_name, n_samples=n_samples)
-    else:
-        print_config(args)
+
+    if args.proc.get("train"):
+        trainer.train(args, save_dir)
 
     if args.proc.get("test"):
         args.task.ckpt_dir = args.task.get("ckpt_dir") or save_dir

@@ -1,23 +1,39 @@
-"""DMSP task, the inference half: model, batch preparation, losses, the
-eval step and the test scores.
+"""DMSP task: model, batch preparation, losses, the train and eval steps
+and the test scores.
 
-Port of ``torch_fdtd_string_tpu/tasks/synthesize.py:32-251`` (reference
+Port of ``torch_fdtd_string_tpu/tasks/synthesize.py`` (reference
 ``src/task/synthesize.py``, the LightningModule): builds the
-``Synthesizer``, prepares numpy batches (f0 frame downsampling, mode-target
-trimming) and moves them to the model's device, computes the configured
-multi-loss, and scores the model and the analytic-modal baseline per item
-in float64 on the device that holds the waveforms.  The train step comes with the training slice.
+``Synthesizer``, prepares numpy batches (f0 frame downsampling,
+mode-target trimming) and moves them to the model's device, computes the
+configured multi-loss, takes a train step (autograd, then the optimizer of
+``models/optim.py``), and scores the model and the analytic-modal baseline
+per item in float64 on the device that holds the waveforms.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..models.losses import si_sdr, stft_mag
 from ..utils import misc as ms
+
+
+@dataclass
+class TrainState:
+    """What a train step advances (JAX ``TrainState``): the model holds the
+    parameters and constants, the optimizer its state and update count;
+    ``step`` counts the steps taken, ``generator`` (on the model's device)
+    draws the noise branch's samples, one draw per step, where the JAX
+    package splits ``state.rng``."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int
+    generator: torch.Generator
 
 
 def build_model(args, generator=None, device=None):
@@ -126,6 +142,26 @@ def compute_losses(outputs, registry, criteria):
         total = total + val
     loss_dict["loss"] = total
     return total, loss_dict
+
+
+def make_train_step(model, optimizer, registry, criteria, inharmonic=True, needs_value=False):
+    """``train_step(state, prep) -> (state, loss_dict)``: the forward on
+    the dataset's modes and the summed loss with autograd on, the backward,
+    the optimizer's update (fed the loss when ``needs_value``: the plateau
+    rule).  ``prep`` holds tensors on the model's device; the returned
+    losses stay there (detached), so a step waits for nothing."""
+
+    def train_step(state, prep):
+        optimizer.zero_grad(set_to_none=True)
+        outputs = forward_outputs(model, prep, state.generator, inharmonic)
+        total, loss_dict = compute_losses(outputs, registry, criteria)
+        total.backward()
+        losses = {k: v.detach() for k, v in loss_dict.items()}
+        optimizer.step(value=losses["loss"] if needs_value else None)
+        state.step += 1
+        return state, losses
+
+    return train_step
 
 
 def make_eval_step(model, registry, criteria, inharmonic=True, use_gt_modes=True):
