@@ -97,8 +97,23 @@ Phases; any failure exits non-zero:
    float64 comes from (by criterion, ``modal_synth`` in float64, the FM
    frequencies rounded, l1's floor); the train step's ms (forward,
    backward, optimizer), items/s and peak device memory.
+19. the classic pipeline and presets: (a) ``python -m
+   torch_fdtd_string_tpu_torch.run experiment=process_training_data`` on
+   phase 4's run (24 strings of 1 s, Nx=256) through ``run.main``: every
+   item complete and finite, a second call processing nothing, one item's
+   modal bank on the card against its numpy twin, the items against
+   phase 9's fused items of the same draws at the JAX bounds (the two
+   runs' readouts first); (b) ``experiment=evaluate`` and
+   ``proc.summarize=true`` on phase 4's run: 24 finite rows, each YIN
+   estimate within 5% of its first mode; (c) a seeded synthetic 1 s
+   recording through ``tasks/preprocess_data.py``, then
+   ``experiment=nsynth-like task.fuse_preprocess=false
+   task.load_config=<presets>`` with ``model.excitation=bow`` and
+   ``hammer`` (B=4): ``target_f0`` the preset, the bowed outputs' f0
+   tracks on the preset's, the hammered outputs silent (the hammer starts
+   at rest), each batch's launch against its plain version over 256 steps.
 
-Phases 13-18 run after phase 10 and before the ladder phases 11-12, whose
+Phases 13-19 run after phase 10 and before the ladder phases 11-12, whose
 length follows the time left.
 
 Phase 2 also prints ptxas's registers and spills of every instance.
@@ -125,8 +140,8 @@ and (b) against its plain version and, two sweeps, against the adaptive
 kernel; (u) ``pluck_chunked`` against ``string_chunked`` bit for bit (one
 ``pluck-gmres`` launch) and against its plain version on draw (a).
 
-Phases 4-16 each set the launch counts to 0 just before the run and read
-them just after.  The line before the last is the kernels' JSON record, one
+Phases 4-16 and 19 each set the launch counts to 0 just before a run and
+read them just after.  The line before the last is the kernels' JSON record, one
 entry per specialization (the MMS and fixed-schedule instances among them),
 one for the bucketed launch, one per GMRES instance the main paths launched
 (``pluck_chunked`` launches ``pluck-gmres``); the last line is ``{"ok":
@@ -310,6 +325,14 @@ DMSP_TRAIN = ["experiment=synth-dmsp", "proc.train=true", "proc.test=true", "tas
               "model.mode_estimator=physics"]
 DMSP_TRAIN_HELD, DMSP_TRAIN_BATCH = 8, 128
 LOSS64, GRAD64, PARAM64, LOSS32, GRAD32, F32_RATIO = 1e-9, 1e-6, 1e-7, 5e-4, 0.4, 3.0
+# phase 19: the device modal bank against its numpy twin (the CPU test's
+# bound, tests/test_torch_process_training_data.py), the preset runs (B=4,
+# 1 s) and the bound on a bowed preset string's output f0 track, the
+# median over voiced frames of |track / preset - 1|, fixed before the first
+# card run
+BANK_NP_BOUND, PRESET_F0_REL = 1e-5, 0.03
+PRESETS = ["experiment=nsynth-like", "task.fuse_preprocess=false", "task.num_samples=4",
+           "task.batch_size=4", "task.length=1.0"]
 # phase 16's engine point (batch, seconds): the eager engine takes tens of
 # ms per step on the card
 ENGINE_POINT = (4, 0.005)
@@ -2047,6 +2070,270 @@ def drive_dmsp_train(dev, card):
     return dict(step_ms=whole, split=split, peak=peak)
 
 
+def synthetic_recording(path, length=1.0, seed=19):
+    """``path/input.wav`` (tests/test_torch_presets.py's recording): a tone
+    gliding linearly from 196 to 233 Hz, its envelope restarted (decaying
+    at 8 /s) at 0, 1/3 and 2/3 of the length, with -60 dB of seeded noise."""
+    from torch_fdtd_string_tpu_torch.utils import wav as wavio
+
+    n = int(length * SR)
+    t = np.arange(n) / SR
+    phase = 2 * np.pi * np.cumsum(196.0 + 37.0 * t / length) / SR
+    env = np.zeros(n)
+    for on in (0.0, length / 3, 2 * length / 3):
+        i = int(on * SR)
+        env[i:] = np.exp(-8.0 * np.arange(n - i) / SR)
+    x = 0.5 * env * np.sin(phase) + 1e-3 * np.random.default_rng(seed).standard_normal(n)
+    os.makedirs(path, exist_ok=True)
+    wavio.write(os.path.join(path, "input.wav"), x, SR, "PCM_24")
+
+
+def read_columns(d, prefix, cols):
+    from torch_fdtd_string_tpu_torch.utils import wav as wavio
+
+    return np.stack([wavio.read(os.path.join(d, f"{prefix}-{x}.wav"))[0] for x in cols],
+                    axis=1)
+
+
+def check_bank(item_dir, dev, card):
+    """One prepared item's modal bank again from its ``parameters.npz``:
+    ``modal_synth_nyquist`` on the card (CUDA events) against its numpy
+    twin on the host at BANK_NP_BOUND of scale, and against the item's
+    written ``ua`` wavs (PCM_24).  Returns the two times in ms."""
+    from torch_fdtd_string_tpu_torch.ops import modal
+    from torch_fdtd_string_tpu_torch.tasks import process_training_data as ptd
+
+    z = np.load(os.path.join(item_dir, "parameters.npz"))
+    f0, kappa = np.asarray(z["f0"], np.float64), float(z["kappa"])
+    omega = f0 / SR * (2 * np.pi)
+    freq_tv = z["mode_freq"][None, :] + (omega - omega[0])[:, None]
+    sig0_tv, _ = ptd.t60_to_sigma_tv(z["T60"], f0, 2 * f0 * kappa)
+    damp = np.exp(-z["t"][:, 0] * sig0_tv)
+    amps = np.asarray(z["mode_amps"].T, np.float32)  # (Nx, n)
+    args = (torch.as_tensor(freq_tv[None], dtype=torch.float64, device=dev),
+            torch.as_tensor(amps[:, None, :], device=dev),
+            torch.as_tensor(damp[None, :, None], dtype=torch.float32, device=dev), float(SR))
+    got = modal.modal_synth_nyquist(*args)[:, :, 0].T.cpu().numpy()
+    bank_ms = cuda_ms(lambda: modal.modal_synth_nyquist(*args), reps=5)
+    # its stages alone: the float64 running sum, the masked cosines, the product
+    freq = args[0][0]
+    phase = modal.phase_sum(freq)
+    tbank = torch.cos(phase).float()
+    stages = dict(phase_sum=cuda_ms(lambda: modal.phase_sum(freq), reps=5),
+                  cos=cuda_ms(lambda: torch.cos(phase).float(), reps=5),
+                  product=cuda_ms(lambda: tbank @ args[1][:, 0, :].T, reps=5))
+    t0 = time.perf_counter()
+    ref = modal.modal_synth_nyquist_np(freq_tv, amps, damp, SR)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    cols = range(0, amps.shape[0], 16)
+    written = read_columns(item_dir, "ua", cols)
+    werr = float(np.abs(written - got[:, list(cols)]).max())
+    print(f"[19] modal bank of {os.path.basename(item_dir)} ({freq_tv.shape[0]} steps, "
+          f"{amps.shape[1]} modes, {amps.shape[0]} columns): card {bank_ms:.3f} ms (CUDA "
+          f"events; {', '.join(f'{k} {v:.3f}' for k, v in stages.items())} ms alone), "
+          f"numpy twin on the host {host_ms:.1f} ms; card against twin "
+          f"{err:.3e} of scale {scale:.3e} ({err / scale:.2e}); against the written ua "
+          f"wavs {werr:.3e} [{card}]")
+    if not err <= BANK_NP_BOUND * scale:
+        raise AssertionError(f"[19] the card's modal bank is {err / scale:.2e} of scale "
+                             f"off its numpy twin")
+    if not werr <= 2.0 / 8388607:
+        raise AssertionError(f"[19] the written ua is {werr} off the card's bank")
+    return bank_ms, host_ms
+
+
+def check_classic_against_fused(classic_run, prep, fused_prep, card):
+    """Phase 19 (a)'s items against phase 9's fused prep of the same draws:
+    first the two runs' readouts (phase 4's ``simulation.npz`` against the
+    fused items' ``uout``), then the items at the JAX bounds
+    (tests/test_pipeline.py:247-327): ``x`` equal, ``mode_freq`` rtol 1e-6,
+    ``mode_amps`` rtol 1e-4, ``ut`` within 5e-4 of the peak (the fused pull's
+    float16) on every 4th column."""
+    items = sorted(os.listdir(prep))
+    fused = sorted(d for d in os.listdir(fused_prep)
+                   if os.path.isdir(os.path.join(fused_prep, d)))
+    if items != fused:
+        raise AssertionError(f"[19] classic items {items} against fused {fused}")
+    cols = range(0, 256, 4)
+    worst = dict(uout=0.0, mode_freq=0.0, mode_amps=0.0, ut=0.0)
+    for d in items:
+        u_c = np.load(os.path.join(classic_run, d, "simulation.npz"))["uout"]
+        fz = np.load(os.path.join(fused_prep, d, "parameters.npz"))
+        cz = np.load(os.path.join(prep, d, "parameters.npz"))
+        diff = np.abs(u_c.astype(np.float64) - fz["uout"])
+        if diff.max() > 0:
+            at = int(np.argmax(diff > 0))
+            print(f"[19] item {d}: the classic and the fused readouts part at step "
+                  f"{at + 2}, max {diff.max():.3e} of scale {np.abs(u_c).max():.3e}")
+            if not diff.max() <= READOUT_REL * np.abs(u_c).max():
+                raise AssertionError(f"[19] item {d}: uout beyond the phase-3 bound")
+        worst["uout"] = max(worst["uout"], float(diff.max()))
+        if not np.array_equal(fz["x"], cz["x"]):
+            raise AssertionError(f"[19] item {d}: x differs")
+        rf = float(np.abs(fz["mode_freq"] / cz["mode_freq"] - 1).max())
+        ra = np.abs(fz["mode_amps"] - cz["mode_amps"]) - 1e-4 * np.abs(cz["mode_amps"])
+        wf = read_columns(os.path.join(fused_prep, d), "ut", cols)
+        wc = read_columns(os.path.join(prep, d), "ut", cols)
+        peak = float(np.abs(wc).max())
+        ut = float(np.abs(wf - wc).max()) / peak
+        worst.update(mode_freq=max(worst["mode_freq"], rf),
+                     mode_amps=max(worst["mode_amps"], float(ra.max())),
+                     ut=max(worst["ut"], ut))
+        if rf > 1e-6 or ra.max() > 1e-8 or not ut * peak < 5e-4 * peak + 1e-7:
+            raise AssertionError(f"[19] item {d}: mode_freq {rf:.2e}, mode_amps "
+                                 f"{ra.max():.2e} past rtol, ut {ut:.2e} of the peak")
+    print(f"[19] {len(items)} classic items against phase 9's fused items: uout max abs "
+          f"diff {worst['uout']:.3e}, mode_freq {worst['mode_freq']:.2e} relative, "
+          f"mode_amps {worst['mode_amps']:.2e} past rtol 1e-4, ut {worst['ut']:.2e} of "
+          f"the peak [{card}]")
+
+
+def check_scores(run_dir, n_items, card):
+    """Phase 19 (b): ``evaluation.txt`` and ``summary.txt`` of a run."""
+    with open(os.path.join(run_dir, "evaluation.txt")) as f:
+        header = f.readline().rstrip("\n").split("\t")[1:]
+        rows = {p[0]: np.array([float(v) for v in p[1:]])
+                for p in (line.rstrip("\n").split("\t") for line in f)}
+    if len(rows) != n_items or not all(np.isfinite(v).all() for v in rows.values()):
+        raise AssertionError(f"[19] evaluation.txt: {len(rows)} rows of {n_items}, or "
+                             f"not finite")
+    col = {k: i for i, k in enumerate(header)}
+    diff = {n: r[col["abs_diff_modes"]] / r[col["f0_mode_pred"]] for n, r in rows.items()}
+    print(f"[19] evaluation.txt: {len(rows)} rows; |f0 estimate - first mode| / first mode "
+          f"max {max(diff.values()):.4f}, median {np.median(list(diff.values())):.4f} "
+          f"(bound 0.05)")
+    bad = {n: round(v, 4) for n, v in diff.items() if not v < 0.05}
+    if bad:
+        raise AssertionError(f"[19] items off their first mode: {bad}")
+    with open(os.path.join(run_dir, "summary.txt")) as f:
+        lines = f.read().splitlines()
+    if [ln.split("\t")[0] for ln in lines] != ["stat", "mean", "median", "std"] or \
+            lines[0].split("\t")[1:] != header:
+        raise AssertionError(f"[19] summary.txt: {lines[:1]}")
+
+
+def drive_presets(dev, card):
+    """Phase 19 (c): presets of a synthetic recording drive a bowed and a
+    hammered batch of 4 through ``task.load_config``.  Returns the kernel
+    launches by specialization and the walls."""
+    from torch_fdtd_string_tpu_torch.ops.string_kernel import (
+        string_chunked_bucketed,
+        string_chunked_bucketed_reference,
+    )
+    from torch_fdtd_string_tpu_torch.tasks import preprocess_data, simulate
+    from torch_fdtd_string_tpu_torch.utils import wav as wavio
+    from torch_fdtd_string_tpu_torch.utils.frequency import compute_harmonic_parameters
+
+    root = os.path.join(ROOT, "results", "chip_smoke_19_presets")
+    shutil.rmtree(root, ignore_errors=True)
+    synthetic_recording(os.path.join(root, "rec"))
+    t0 = time.perf_counter()
+    f0, force, strikes = preprocess_data.process(root, "rec")
+    pre_s = time.perf_counter() - t0
+    print(f"[19] preprocess_data: {pre_s:.2f} s for 1 s of audio; f0 {f0.min():.2f}-"
+          f"{f0.max():.2f} Hz, bow force on {(force > 0).mean():.3f} of the samples, "
+          f"strikes at samples {np.nonzero(strikes)[0].tolist()} [{card}]")
+    preset = os.path.join(root, "rec")
+    launches, walls = {}, {}
+    for exc, extra in (("bow", []), ("hammer", ["task.skip_silence=false"])):
+        over = PRESETS + [f"model.excitation={exc}", f"task.load_config={preset}"] + extra
+        n, run = drive(19, f"task.load_config, model.excitation={exc}", over, exc, card)
+        launches[exc], walls[exc] = n, run["wall"]
+        for d in run["items"]:
+            st = np.load(os.path.join(run["save_dir"], d, "string_params.npz"))
+            if not np.array_equal(st["target_f0"], f0[:SR].astype(np.float32)):
+                raise AssertionError(f"[19] {exc} {d}: target_f0 is not the preset")
+            wav, _ = wavio.read(os.path.join(run["save_dir"], d, "output-u.wav"))
+            if exc == "hammer":
+                # the string step reads the hammer's first two displacement
+                # rows only: the recording's strikes come later, so the
+                # hammer stays at rest (both packages)
+                if np.abs(wav).max() != 0:
+                    raise AssertionError(f"[19] hammer {d}: not silent")
+                continue
+            track = compute_harmonic_parameters(np.asarray(wav, np.float64), SR)
+            sel = (track["f0"] > 0) & (track["time"] >= 0.1)
+            want = f0[np.minimum((track["time"][sel] * SR).astype(int), SR - 1)]
+            dev_rel = np.abs(track["f0"][sel] / want - 1)
+            print(f"[19] bow {d}: output f0 track against the preset over {int(sel.sum())} "
+                  f"voiced frames: median {np.median(dev_rel):.4f}, 90th percentile "
+                  f"{np.quantile(dev_rel, 0.9):.4f} (bound {PRESET_F0_REL} on the median)")
+            if not (sel.sum() > 0 and np.median(dev_rel) <= PRESET_F0_REL):
+                raise AssertionError(f"[19] bow {d}: output f0 off the preset")
+        if exc == "hammer":
+            print(f"[19] hammer: every item silent, as the JAX package runs this preset")
+        # the preset batch's launch against its plain version over 256 steps
+        task, (string, bow, hammer, bm, hm), consts = nsynth_draw(over)
+        simulate._load_presets(preset, int(task.length * SR), string, bow, hammer, 1.0 / SR)
+        args, kwargs = truncate(simulate.kernel_inputs(
+            string, consts, int(task.length * SR), dev, bow, hammer, bm, hm), 256)
+        hb = host_bounds(args)
+        got = string_chunked_bucketed(*args, host_bounds=hb, **kwargs)
+        ref = string_chunked_bucketed_reference(*args, host_bounds=hb, **kwargs)
+        compare(f"[19] {exc} preset batch B=4, 256 steps", got, ref)
+    return launches, dict(preprocess=pre_s, **walls)
+
+
+def drive_phase19(classic, fused_prep, dev, card):
+    """Phase 19: the classic pipeline on phase 4's run (preprocessing,
+    scoring) and the preset-driven strings.  Returns the preset runs'
+    kernel launches by specialization."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.tasks import process_training_data as ptd
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    root_dir = os.path.join(ROOT, "results")
+    run_name = os.path.basename(classic["save_dir"])
+    prep = os.path.join(root_dir, "chip_smoke_19_prep")
+    shutil.rmtree(prep, ignore_errors=True)
+    over = ["experiment=process_training_data", f"task.root_dir={root_dir}",
+            f"task.result_dir={run_name}", "task.save_dir=chip_smoke_19_prep"]
+    t0 = time.perf_counter()
+    port_run.main(over)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    items = sorted(os.listdir(prep))
+    if items != classic["items"]:
+        raise AssertionError(f"[19] prepared {items} of {classic['items']}")
+    for d in items:
+        if not ptd.is_processed(os.path.join(prep, d), 256):
+            raise AssertionError(f"[19] {d} incomplete")
+        z = np.load(os.path.join(prep, d, "parameters.npz"))
+        for key in z.files:
+            if z[key].dtype.kind == "f" and not np.isfinite(z[key]).all():
+                raise AssertionError(f"[19] {d}: {key} not finite")
+    print(f"[19] (a) experiment=process_training_data on phase 4's run: {len(items)} items "
+          f"complete and finite (256 ut and ua wavs, vt.wav, parameters.npz), wall "
+          f"{wall:.2f} s = {wall / len(items):.3f} s per item [{card}]")
+    again = ptd.process(compose(port_run.CONFIG_DIR, over))
+    if again != 0:
+        raise AssertionError(f"[19] the second call processed {again} items")
+    print("[19] a second call processes nothing")
+    bank_ms, host_ms = check_bank(os.path.join(prep, items[0]), dev, card)
+    check_classic_against_fused(classic["save_dir"], prep, fused_prep, card)
+
+    t0 = time.perf_counter()
+    port_run.main(["experiment=evaluate", f"task.load_dir={classic['save_dir']}"])
+    eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    port_run.main(["proc.simulate=false", "proc.summarize=true",
+                   f"task.load_dir={classic['save_dir']}"])
+    sum_s = time.perf_counter() - t0
+    check_scores(classic["save_dir"], len(classic["items"]), card)
+    print(f"[19] (b) experiment=evaluate {eval_s:.2f} s, proc.summarize {sum_s:.3f} s for "
+          f"{len(classic['items'])} items [{card}]")
+
+    launches, walls = drive_presets(dev, card)
+    print(f"[19] (c) presets: preprocess_data {walls['preprocess']:.2f} s, bowed run "
+          f"{walls['bow']:.2f} s, hammered run {walls['hammer']:.2f} s (B=4, 1 s) [{card}]")
+    print(f"[19] walls: preprocessing {wall:.2f} s ({wall / len(items):.3f} s per item), "
+          f"modal bank {bank_ms:.3f} ms per item on the card against {host_ms:.1f} ms on "
+          f"the host, evaluate {eval_s:.2f} s, summarize {sum_s:.3f} s [{card}]")
+    return launches
+
+
 def add_gmres(acc, by_spec):
     for spec, n in by_spec.items():
         if spec.endswith("-gmres"):
@@ -2444,6 +2731,11 @@ def main():
     # ---- 18. DMSP training at full width on a fresh corpus ----------------------
     drive_dmsp_train(dev, card)
     print(f"[18] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 19. the classic pipeline on phase 4's run; presets ---------------------
+    for spec, n in drive_phase19(pluck, head["save_dir"] + "-prep", dev, card).items():
+        launches[spec] += n
+    print(f"[19] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 11-12. the rescue ladder ----------------------------------------------
     left = max(RUN_TARGET_S - (time.perf_counter() - t_start) - LADDER12_S, 30.0)

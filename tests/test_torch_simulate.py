@@ -118,6 +118,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import torch_fdtd_string_tpu_torch.tasks.simulate\n"
         "import torch_fdtd_string_tpu_torch.tasks.process_training_data\n"
+        "import torch_fdtd_string_tpu_torch.tasks.evaluate\n"
+        "import torch_fdtd_string_tpu_torch.tasks.summarize\n"
+        "import torch_fdtd_string_tpu_torch.tasks.preprocess_data\n"
         "import torch_fdtd_string_tpu_torch.ops.postproc\n"
         "import torch_fdtd_string_tpu_torch.ops.modal\n"
         "import torch_fdtd_string_tpu_torch.core.analytic\n"

@@ -3,10 +3,11 @@
 Port of ``torch_fdtd_string_tpu/ops/modal.py``: the phase-accumulating
 cosine and sine banks of the DMSP synthesizer (reference
 ``src/utils/ddsp.py:132-149``), evaluated as one running sum (in float64,
-wrapped; :func:`phase_sum`) and a reduction over modes, and the host
-cosine bank of the fused dataset path.  The
-Nyquist-masked device bank ``modal_synth_nyquist`` waits for the classic
-preprocessing path (ROADMAP Queue 1 item 8).
+wrapped; :func:`phase_sum`) and a reduction over modes, and the
+Nyquist-masked cosine bank of preprocessing (reference
+``process_training_data.py:45-63``) on a device (:func:`modal_synth_nyquist`,
+the classic path) and on the host (:func:`modal_synth_nyquist_np`, the
+fused path's host build).
 """
 
 from __future__ import annotations
@@ -80,3 +81,22 @@ def modal_synth_nyquist_np(freq_tv, amps, damp, sr):
     tbank = np.cos(phase).astype(np.float32) * aa
     tbank *= np.asarray(damp, np.float32)[:, None]
     return tbank @ np.ascontiguousarray(np.asarray(amps, np.float32).T)
+
+
+def modal_synth_nyquist(freq_tv, amps, damp, sr):
+    """Nyquist-masked damped cosine bank on the tensors' device.
+
+    freq_tv: (1, Nt, n) rad/sample; amps: (Nx, 1, n); damp: (1, Nt, 1).
+    Returns (Nx, Nt, 1) in ``amps``' dtype.  The phase is the float64
+    running sum of ``freq_tv`` (:func:`phase_sum`), whatever its dtype;
+    modes above Nyquist keep 1e-4 of their amplitude, and the modes are
+    contracted as one (Nt, n) @ (n, Nx) product, so no (Nx, Nt, n) tensor
+    is formed.  The arithmetic is :func:`modal_synth_nyquist_np`'s.
+    """
+    freq = freq_tv[0].to(torch.float64)  # (Nt, n)
+    hz = freq / (2 * math.pi) * sr
+    aa = (hz < sr / 2).to(amps.dtype) + 1e-4
+    tbank = torch.cos(phase_sum(freq)).to(amps.dtype) * aa
+    tbank = tbank * damp[0].to(amps.dtype)  # (Nt, n)
+    out = tbank @ amps[:, 0, :].T  # (Nt, Nx)
+    return out.T[:, :, None]

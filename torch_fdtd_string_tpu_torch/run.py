@@ -5,15 +5,22 @@
 
 Takes the same overrides as the JAX package's ``run.py`` and composes the
 same config tree (``torch_fdtd_string_tpu/configs``, read as YAML by file
-path).  The ``proc.simulate`` branch, the ``proc.train`` branch (the DMSP
-synthesizer's training, ``tasks/trainer.py::train``) and the
-``proc.test`` branch (its scoring of a test split,
-``tasks/trainer.py::evaluate``) are ported, on the card unless
-``proc.cpu=true``; the other ``proc.*`` branches raise
-``NotImplementedError``.
+path).  Every ``proc.*`` branch is ported, in the JAX package's order:
+``proc.simulate`` (dataset generation, presets with
+``task.load_config=<dir>``), ``proc.evaluate`` and ``proc.summarize`` (the
+f0 scores of a simulation run, host numpy), ``proc.process_training_data``
+(a classic run into the DMSP layout), ``proc.train`` (the DMSP
+synthesizer's training) and ``proc.test`` (its scoring of a test split).
+The simulation, the preprocessing's modal bank, training and scoring run
+on the card unless ``proc.cpu=true``.
 
-    python -m torch_fdtd_string_tpu_torch.run experiment=synth-dmsp \
-        proc.train=true proc.test=true task.plot=false \
+    python -m torch_fdtd_string_tpu_torch.run experiment=process_training_data \\
+        task.result_dir=<simulation run> task.save_dir=<prepared dir>
+    python -m torch_fdtd_string_tpu_torch.run experiment=evaluate task.load_dir=<run>
+    python -m torch_fdtd_string_tpu_torch.run proc.simulate=false \\
+        proc.summarize=true task.load_dir=<run>
+    python -m torch_fdtd_string_tpu_torch.run experiment=synth-dmsp \\
+        proc.train=true proc.test=true task.plot=false \\
         task.load_dir=results task.load_name=<corpus> task.save_name=<run>
 """
 
@@ -25,7 +32,8 @@ from shutil import copyfile
 
 import numpy as np
 
-from torch_fdtd_string_tpu_torch.tasks import simulate, trainer
+from torch_fdtd_string_tpu_torch.tasks import (evaluate, process_training_data,
+                                               simulate, summarize, trainer)
 from torch_fdtd_string_tpu_torch.utils.config import compose, print_config
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -73,11 +81,6 @@ def main(argv=None):
         args.task.save = False
         args.task.plot_state = False
 
-    for branch in ("evaluate", "summarize", "process_training_data"):
-        if args.proc.get(branch):
-            raise NotImplementedError(
-                f"proc.{branch} is not ported yet (see ROADMAP.md Queue 1)")
-
     # a training run scores its own checkpoints (JAX run.py:146)
     if args.proc.get("train") and args.proc.get("test") and args.task.get("ckpt_dir") is not None:
         raise ValueError("task.ckpt_dir names another run's checkpoints; it cannot be given "
@@ -96,6 +99,16 @@ def main(argv=None):
         )
         n_samples = max(args.task.num_samples // args.task.batch_size, 1)
         simulate.run(args, save_dir, model_name, n_samples=n_samples)
+
+    load_dir = save_dir if args.task.get("load_dir") is None else args.task.load_dir
+    if args.proc.evaluate:
+        evaluate.evaluate(load_dir, plot=args.task.get("plot", False))
+
+    if args.proc.summarize:
+        summarize.summarize(load_dir)
+
+    if args.proc.process_training_data:
+        process_training_data.process(args)
 
     if args.proc.get("train"):
         trainer.train(args, save_dir)

@@ -1,0 +1,98 @@
+"""Evaluate simulated outputs: the f0 and detune scores of each item.
+
+Port of ``torch_fdtd_string_tpu/tasks/evaluate.py`` (reference
+``src/task/evaluate.py``).  Per simulation directory of the classic
+archival contract: track the output's f0 (two-stage YIN in place of
+CREPE), compare it with the input f0, the precorrected target f0 and the
+Fletcher-theory prediction of the first mode, and write
+``string_params.txt``; over the run, ``evaluation.txt``.  Host numpy: it
+chooses no device.  The figures (``plot=True``) wait for the port's plots
+(ROADMAP.md Queue 1 item 12) and raise.
+
+    python -m torch_fdtd_string_tpu_torch.run experiment=evaluate \\
+        task.load_dir=<simulation run>
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+
+import numpy as np
+
+from ..ops import fdm
+from ..utils import wav as wavio
+from ..utils.frequency import compute_harmonic_parameters
+from ..utils.vnv import relative_detune_error
+
+
+def _no_plots(plot):
+    if plot:
+        raise NotImplementedError(
+            "evaluate's figures are not ported yet (ROADMAP.md Queue 1 item 12); "
+            "pass task.plot=false")
+
+
+def evaluate_dir(sim_dir, sr=48000, plot=False):
+    """The item's score dict, also written to ``string_params.txt``; None
+    for a directory without ``output-u.wav`` and ``string_params.npz``."""
+    _no_plots(plot)
+    wav_path = os.path.join(sim_dir, "output-u.wav")
+    str_path = os.path.join(sim_dir, "string_params.npz")
+    if not (os.path.exists(wav_path) and os.path.exists(str_path)):
+        return None
+    wav, wsr = wavio.read(wav_path)
+    params = np.load(str_path)
+    f0_in = np.atleast_1d(params["f0"])
+    f0_tgt = np.atleast_1d(params["target_f0"])
+    kappa = float(np.atleast_1d(params["kappa"])[0])
+
+    # the Fletcher-theory sounding frequency of the simulation's input
+    mode1 = fdm.stiff_string_modes(f0_in.mean(), kappa, 1)[0][0]
+
+    f0_est = compute_harmonic_parameters(wav, wsr)["f0"]
+    voiced = f0_est > 0
+    est = float(np.median(f0_est[voiced])) if voiced.any() else 0.0
+
+    u0 = np.atleast_2d(params["u0"])[0]
+    scores = {
+        "f0_estimate": est,
+        "f0_input_mean": float(f0_in.mean()),
+        "f0_target_mean": float(f0_tgt.mean()),
+        "f0_mode_pred": float(np.asarray(mode1).mean()),
+        "abs_diff_input": abs(est - float(f0_in.mean())),
+        "abs_diff_target": abs(est - float(f0_tgt.mean())),
+        "abs_diff_modes": abs(est - float(np.asarray(mode1).mean())),
+        "rde_target_pct": float(relative_detune_error(est, float(f0_tgt.mean()))),
+        # the sampled parameters, the columns of the summary's scatter panels
+        "kappa": kappa,
+        "alpha": float(np.atleast_1d(params["alpha"])[0]),
+        "p_a": float(np.atleast_1d(params["p_a"])[0]),
+        "p_x": float(np.argmax(u0) / max(len(u0) - 1, 1)),
+    }
+    with open(os.path.join(sim_dir, "string_params.txt"), "w") as f:
+        for k, v in scores.items():
+            f.write(f"{k}\t{v:.4f}\n")
+    return scores
+
+
+def evaluate(load_dir, sr=48000, plot=False):
+    """Score every item directory of ``load_dir`` and write
+    ``evaluation.txt`` (one row per item).  Returns ``[(item, scores)]``."""
+    _no_plots(plot)
+    dirs = sorted(
+        d for d in glob.glob(f"{load_dir}/*") if os.path.isdir(d) and "codes" not in d
+    )
+    all_scores = []
+    for d in dirs:
+        s = evaluate_dir(d, sr)
+        if s is not None:
+            all_scores.append((os.path.basename(d), s))
+    if all_scores:
+        keys = list(all_scores[0][1].keys())
+        with open(os.path.join(load_dir, "evaluation.txt"), "w") as f:
+            f.write("item\t" + "\t".join(keys) + "\n")
+            for name, s in all_scores:
+                f.write(name + "\t" + "\t".join(f"{s[k]:.4f}" for k in keys) + "\n")
+        print(f"[evaluate] {len(all_scores)} items -> {load_dir}/evaluation.txt")
+    return all_scores

@@ -44,17 +44,21 @@ each stage saved, the NaN and silence skips) and the timing log
 ``skip_stats.json`` also carries the writer phases' times and the
 device-to-host bytes.
 
+With ``task.load_config=<dir>`` the batch's draws take the ``.npy``
+presets of ``tasks/preprocess_data.py`` (:func:`_load_presets`).
+
 The device is chosen explicitly: the CPU for ``proc.cpu=true`` (where a
 single-precision run takes the kernel's plain PyTorch version), CUDA
 otherwise in either precision, and a host without a usable card raises.
-Not ported yet, and refused with ``NotImplementedError``: preset loading
-and plots (see ROADMAP.md).
+Not ported yet, and refused with ``NotImplementedError``: plots (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import glob
 import json
 import os
 import threading
@@ -599,6 +603,77 @@ def draw_params(model_name, sr, theta_t, length, batch_size, f0_inf,
     return string, bow, hammer, bow_mask, hammer_mask, pluck_mask
 
 
+def _load_presets(load_config, total_size, string, bow, hammer, k):
+    """Apply the ``<model>-<param>.npy`` overrides of the directory
+    ``load_config`` in place (JAX ``tasks/simulate.py::_load_presets``,
+    reference simulate.py:164-182).
+
+    Each file is edge-padded or cut to ``total_size`` samples.
+    ``string-f0`` is the target: it sets ``target_f0`` and, divided by each
+    string's Fletcher factor w0, the simulation's ``f0``; another string
+    parameter is set as given.  Bow parameters are broadcast over the
+    batch.  ``hammer-v_H`` sets ``v_H`` and the hammer's displacement rows
+    ``u_H = M_HD_INIT + k v_H`` on the first two samples (``k v_H`` after
+    them); the string step reads only those two rows of the hammer, so
+    the hammer leaves from rest unless the profile moves in its first two
+    samples.
+    """
+    for npy_path in glob.glob(f"{load_config}/*.npy"):
+        val = np.load(npy_path)
+        if val.shape[-1] < total_size:
+            val = np.pad(val, (0, total_size - val.shape[-1]), mode="edge")
+        else:
+            val = val[:total_size]
+        target_model, target_param = os.path.basename(npy_path).split(".")[0].split("-")
+        tm = target_model.lower()
+        if tm == "string":
+            if target_param == "f0":
+                w0 = np.asarray(fdm.stiff_string_modes(0.0, string.kappa.reshape(-1, 1), 1)[1][0])
+                string.f0 = (val[None, :] / w0).astype(string.f0.dtype)
+                string.target_f0 = np.broadcast_to(
+                    val, string.target_f0.shape).astype(string.f0.dtype)
+            else:
+                setattr(string, target_param, np.asarray(val, string.f0.dtype))
+        elif tm == "bow":
+            cur = getattr(bow, target_param)
+            setattr(bow, target_param, np.broadcast_to(val, cur.shape).astype(cur.dtype))
+        elif tm == "hammer":
+            if target_param == "v_H":
+                profile = val[None, :].astype(hammer.v_H.dtype)
+                hammer.v_H = np.broadcast_to(profile, hammer.v_H.shape).copy()
+                u_H = np.zeros_like(hammer.v_H)
+                u_H[:, :2] += prm.M_HD_INIT
+                hammer.u_H = u_H + k * hammer.v_H
+            else:
+                cur = getattr(hammer, target_param)
+                setattr(hammer, target_param, np.broadcast_to(val, cur.shape).astype(cur.dtype))
+        else:
+            raise ValueError(f"{npy_path}: unknown model {target_model!r} "
+                             "(string, bow or hammer)")
+
+
+def check_allocation(string, k, theta_t, lambda_c, f0_inf):
+    """Raise when a preset's f0 needs a wider grid than the batch's
+    allocation, which the sampler sizes from ``task.f0_inf`` before the
+    presets replace ``f0``.
+
+    The JAX package runs such a preset unchecked: its kernel keeps the
+    extra grid points on its 128-lane padding (up to 384 lanes at
+    nsynth-like) and cuts the saved ``state_u`` at the allocation, while
+    its scan engine has no lanes past the allocation.  The port's launch
+    has no such padding to borrow: the string would run on a cut grid.
+    """
+    _, _, Nx_t, _, Nx_l, _ = fdm.get_derived_vars_host(
+        string.f0, string.kappa[:, None], k, theta_t, lambda_c,
+        string.alpha[:, None], dtype=string.f0.dtype)
+    if Nx_t.max() > string.Nx_t or Nx_l.max() > string.Nx_l:
+        raise ValueError(
+            f"the preset's f0 (down to {float(string.target_f0.min()):.2f} Hz) needs "
+            f"{int(Nx_t.max())} transverse / {int(Nx_l.max())} longitudinal intervals, "
+            f"more than the {string.Nx_t} / {string.Nx_l} allocated from "
+            f"task.f0_inf={f0_inf}; lower task.f0_inf below the preset's lowest f0")
+
+
 def sim_consts(string, bow_mask, hammer_mask, sr, theta_t, lambda_c,
                relative_order=4, surface_integral=False, manufactured=False,
                collect_state=True):
@@ -628,14 +703,16 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
     consts), (bow_mask, hammer_mask, pluck_mask), device)``; ``results`` as
     :func:`process` returns them.
     """
-    if load_config is not None:
-        _not_ported("preset loading (task.load_config)", "Queue 1 item 5")
     string, bow, hammer, bow_mask, hammer_mask, pluck_mask = draw_params(
         model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
         lambda_c, string_kwargs=string_kwargs, hammer_kwargs=hammer_kwargs,
         bow_kwargs=bow_kwargs, precision=precision,
         randomize_each=randomize_each, manufactured=manufactured, rng=rng,
     )
+    if load_config is not None:
+        total_size = int(length * sr)
+        _load_presets(load_config, total_size, string, bow, hammer, 1.0 / sr)
+        check_allocation(string, 1.0 / sr, theta_t, lambda_c, f0_inf)
     consts = sim_consts(
         string, bow_mask, hammer_mask, sr, theta_t, lambda_c,
         relative_order=relative_order, surface_integral=surface_integral,

@@ -1,21 +1,52 @@
-"""Training-data file I/O (numpy host side).
+"""Training-data file I/O and collation (numpy host side).
 
-Port of the parts of ``torch_fdtd_string_tpu/utils/data.py`` that the fused
-dataset path uses: the cached spline operators that resample a string's
-state to the training grid, and the per-x wav layout written by
-preprocessing (``ut-{x}.wav`` / ``ua-{x}.wav`` / ``vt.wav`` +
-``parameters.npz``, reference ``src/utils/data.py``), and ``load_wav``, the
-per-item reader of the DMSP datasets (``data/dataset.py``).
+Port of ``torch_fdtd_string_tpu/utils/data.py`` (reference
+``src/utils/data.py``): the spline resamplers of a string's state
+(``interpolate``, ``interpolate1d`` and the cached GEMM operators of the
+dataset paths), the per-x wav layout written by preprocessing
+(``ut-{x}.wav`` / ``ua-{x}.wav`` / ``vt.wav`` + ``parameters.npz``) with
+its writer ``save`` and readers ``load`` and ``load_wav`` (the DMSP
+datasets' per-item reader), and the collation helpers ``set_length`` and
+``stack_batch``.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import threading
 
 import numpy as np
 
 from . import wav as wavio
+
+def interpolate(u, taxis, xaxis, xvals, kx=5, ky=5):
+    """2-D spline resample along space (reference misc.py:138-146).
+
+    u: (Nt, Nx_in); taxis: (Nt, 1) or (Nt,); xaxis: (1, Nx_in); xvals:
+    (Nx_out,).  Returns (Nt, Nx_out).
+    """
+    from scipy.interpolate import RectBivariateSpline
+
+    taxis = np.asarray(taxis).reshape(-1)
+    xaxis = np.asarray(xaxis).reshape(-1)
+    xvals = np.asarray(xvals).reshape(-1)
+    kx_eff = min(kx, len(taxis) - 1) if len(taxis) > 1 else 1
+    ky_eff = min(ky, len(xaxis) - 1)
+    rbs = RectBivariateSpline(taxis, xaxis, u, kx=max(kx_eff, 1), ky=max(ky_eff, 1))
+    return rbs(taxis, xvals, grid=True)
+
+
+def interpolate1d(u, xaxis, xvals, k=5):
+    """1-D spline resample (reference misc.py:128-136). u: (1, Nx) -> (1, Nx_out)."""
+    from scipy.interpolate import make_interp_spline
+
+    xaxis = np.asarray(xaxis).reshape(-1)
+    xvals = np.asarray(xvals).reshape(-1)
+    k_eff = min(k, len(xaxis) - 1)
+    spl = make_interp_spline(xaxis, np.asarray(u).reshape(-1), k=max(k_eff, 1))
+    return spl(xvals)[None, :]
+
 
 _SPLINE_MAT_CACHE = {}
 _SPLINE_LOCK = threading.Lock()
@@ -59,6 +90,34 @@ def upsample_columns(ut, widths, n_out, k=5):
     for w in np.unique(widths):
         rows = np.nonzero(widths == w)[0]
         out[rows] = ut[rows, :w].astype(np.float32) @ spline_matrix(w, n_out, k).T
+    return out
+
+
+def load(dir_path, n_subsample=None, sr=48000, wav_keys=("ut", "zt", "ua"),
+         subsample_method="sequential", rng=None):
+    """A spatial stack of per-x wavs and the item's parameters (reference
+    data.py:24-57): ``{prefix: (Nt, Nx)}`` for each of ``wav_keys`` and
+    every key of ``parameters.npz``.  ``n_subsample`` columns are taken at
+    random (``"random"``) or as a run from a random start."""
+    rng = rng or np.random.default_rng()
+    out = {}
+    for prefix in wav_keys:
+        max_N = len(glob.glob(f"{dir_path}/{prefix}-*.wav"))
+        paths = [f"{dir_path}/{prefix}-{i}.wav" for i in range(max_N)]
+        if n_subsample is not None:
+            if subsample_method == "random":
+                if max_N < n_subsample:
+                    idx = rng.integers(0, max_N, size=n_subsample)
+                else:
+                    idx = rng.permutation(max_N)[:n_subsample]
+            else:
+                r = rng.integers(0, max(max_N - n_subsample, 1))
+                idx = np.arange(r, r + n_subsample)
+            paths = [paths[i] for i in idx]
+        out[prefix] = np.stack([wavio.read(p)[0] for p in paths], axis=1)
+    res = np.load(f"{dir_path}/parameters.npz")
+    for key in res.keys():
+        out[key] = res[key]
     return out
 
 
@@ -108,4 +167,86 @@ def load_wav(wav_path, npz_path, trim=None, keys=("t", "kappa", "alpha"),
         out[key] = val
     w = wavio.read(wav_path)[0] if wav is None else wav
     out["target"] = gain * (w[trim[0]:trim[1]] if trim is not None else w)
+    return out
+
+
+def set_length(x, size, method="pad", idx_x=None):
+    """Pad (``"pad"``), linearly resample (``"interpolate"``) or index
+    (``"random"``, with ``idx_x``) the last axis to ``size`` (reference
+    data.py:81-107)."""
+    x = np.asarray(x)
+    n = x.shape[-1]
+    if method == "interpolate":
+        if n == size:
+            return x
+        src = np.linspace(0, n - 1, size)
+        lo = np.floor(src).astype(int)
+        hi = np.minimum(lo + 1, n - 1)
+        frac = src - lo
+        return x[..., lo] * (1 - frac) + x[..., hi] * frac
+    if method == "pad":
+        if n > size:
+            raise ValueError(f"set Nx (={size}) >= {n}")
+        if n == size:
+            return x
+        out = np.zeros(x.shape[:-1] + (size,), x.dtype)
+        out[..., :n] = x
+        return out
+    if method == "random":
+        if idx_x is None:
+            raise ValueError("method='random' needs idx_x")
+        return np.take(x, idx_x, axis=-1)
+    raise ValueError(f"unknown method {method!r}")
+
+
+# the per-item keys stack_batch cuts in time, and those it sets in space
+TIME_VARS = frozenset({
+    "u_gt", "z_gt", "u_in", "z_in", "f0", "Nu", "Nz",
+    "x_B", "v_B", "F_B", "wid_B", "v_H", "u_H", "uat", "uar", "tt",
+})
+SPACE_VARS = frozenset({"u_gt", "z_gt", "u_in", "z_in", "uat", "uar", "u0", "z0", "xt"})
+
+
+def stack_batch(batch, Nx, Nt=None, sr=48000, x_method="interpolate",
+                t_method="sequential", start_time=None, end_time=None,
+                rng=None):
+    """Collate a list of per-item dicts with time and space subsampling
+    (reference data.py:109-211): ``Nt`` steps from a random start (or
+    ``start_time``) by ``t_method`` (``"sequential"``, ``"interpolate"``,
+    ``"interleave"``), ``Nx`` points by ``x_method`` (:func:`set_length`).
+    ``end_time`` is accepted for the reference's signature and unused."""
+    rng = rng or np.random.default_rng()
+    Bs = len(batch)
+    out = {}
+
+    idx_x = None
+    if x_method == "random":
+        n = batch[0]["u_in"].shape[-1]
+        idx_x = rng.integers(0, n, Nx) if n < Nx else rng.permutation(n)[:Nx]
+
+    T = batch[0]["u_in"].shape[0]
+    if Nt is not None:
+        if start_time is None:
+            st = rng.integers(0, T - Nt, Bs) if T - Nt > 0 else np.zeros(Bs, int)
+        else:
+            st = int(start_time * sr) * np.ones(Bs, int)
+    else:
+        st = np.zeros(Bs, int)
+        Nt = T
+
+    for key in batch[0].keys():
+        vals = [np.asarray(x[key]) for x in batch]
+        if key in TIME_VARS:
+            if t_method == "sequential":
+                vals = [v[st[i]:st[i] + Nt] for i, v in enumerate(vals)]
+            elif t_method == "interpolate":
+                vals = [set_length(v[st[i]:].T if v.ndim > 1 else v[st[i]:], Nt,
+                                   "interpolate") for i, v in enumerate(vals)]
+                vals = [v.T if v.ndim > 1 else v for v in vals]
+            elif t_method == "interleave":
+                vals = [v[st[i]:][::max((T - st[i]) // Nt, 1)][:Nt]
+                        for i, v in enumerate(vals)]
+        if key in SPACE_VARS:
+            vals = [set_length(v, Nx, x_method, idx_x=idx_x) for v in vals]
+        out[key] = np.stack(vals)
     return out
