@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab CHECKOUT [CHECKOUT ...]
+    python3 chip_smoke.py --sharded
 
 Phases; any failure exits non-zero:
 
@@ -113,7 +114,22 @@ Phases; any failure exits non-zero:
    tracks on the preset's, the hammered outputs silent (the hammer starts
    at rest), each batch's launch against its plain version over 256 steps.
 
-Phases 13-19 run after phase 10 and before the ladder phases 11-12, whose
+20. the sharded paths (``parallel/mesh.py``), each rank a process of this
+   script (``--rank``) joined by torchrun's variables: (a) phase 9's
+   ``experiment=nsynth-like task.num_samples=24`` through ``run.main`` on
+   two gloo ranks sharing the card, every run-dir and prepared item equal
+   to phase 9's bit for bit, the readouts to phase 4's, rank 0's job files,
+   the bucketed launch on each rank (counts set to 0 in each rank just
+   before its run and read just after); (b) two synth-dmsp train steps at
+   full width on phase 18's corpus, the batch of 128 split 64/64, against
+   the single-card steps: float64 parameters within 1e-9 of scale, float32
+   losses within 1e-5; (c) a one-rank NCCL group: its start, the port's
+   all-reduce and all-gather, one data-parallel step against the plain
+   step; (d) on a host of two cards or more, (a) and (b) on NCCL across
+   two cards (else a line says it was skipped).  Two ranks on one card
+   measure the path, not scaling.
+
+Phases 13-20 run after phase 10 and before the ladder phases 11-12, whose
 length follows the time left.
 
 Phase 2 also prints ptxas's registers and spills of every instance.
@@ -140,8 +156,8 @@ and (b) against its plain version and, two sweeps, against the adaptive
 kernel; (u) ``pluck_chunked`` against ``string_chunked`` bit for bit (one
 ``pluck-gmres`` launch) and against its plain version on draw (a).
 
-Phases 4-16 and 19 each set the launch counts to 0 just before a run and
-read them just after.  The line before the last is the kernels' JSON record, one
+Phases 4-16, 19 and 20 each set the launch counts to 0 just before a run
+and read them just after.  The line before the last is the kernels' JSON record, one
 entry per specialization (the MMS and fixed-schedule instances among them),
 one for the bucketed launch, one per GMRES instance the main paths launched
 (``pluck_chunked`` launches ``pluck-gmres``); the last line is ``{"ok":
@@ -160,6 +176,10 @@ ptxas report. Each process saves every output field of every case; the
 outputs of every checkout are then held bit for bit to the first's, the
 largest difference per case printed, and any difference exits non-zero. Give
 two commits in turns (old, new, new, old) to compare them on one card.
+
+``--sharded`` runs phases 1-2, phase 9's fused run and phase 18's corpus
+(what phase 20 compares with), then phase 20: on a host of two cards or
+more it runs (d) on two of them.
 """
 
 from __future__ import annotations
@@ -2067,7 +2087,7 @@ def drive_dmsp_train(dev, card):
     print(f"[18] paths: proc.train (synth-dmsp, full width, physics, batch "
           f"{DMSP_TRAIN_BATCH}) {3 * spe} steps over two runs, resumed once; the training "
           f"path reaches no pallas_call, so no kernel of its own")
-    return dict(step_ms=whole, split=split, peak=peak)
+    return dict(step_ms=whole, split=split, peak=peak, over=over)
 
 
 def synthetic_recording(path, length=1.0, seed=19):
@@ -2334,6 +2354,526 @@ def drive_phase19(classic, fused_prep, dev, card):
     return launches
 
 
+# phase 20: the sharded paths (parallel/mesh.py) on two ranks.  Two ranks
+# share the one card on gloo (NCCL refuses two ranks on one card): they
+# measure the path, not scaling.  The sharded generation must equal the
+# single-card run bit for bit (each string at its whole-batch width group)
+# but for the device post-processing's YIN track (SHARD_F0_REL below);
+# the float64 parameters after SHARD_STEPS data-parallel steps the
+# single-card steps' within SHARD_PARAM64 of each tensor's scale, the
+# float32 losses within SHARD_LOSS32 (both set before the first card run;
+# read: 2.0e-14 and 2.2e-7).  proc.train for one epoch (4 steps) on two
+# ranks against one card, float32: the first step's losses within
+# SHARD_LOSS32 (the same batch, weights and noise; read 1.1e-7), the
+# checkpoint's per-tensor distance, relative to each tensor's scale,
+# within SHARD_TRAIN32 = (median, largest).  Read: median 2.3e-6, largest
+# 8.9e-2 on a zero-initialised bias whose scale is its four updates; the
+# losses part at the fourth step (3e-4), as the float32 gradient's
+# sensitivity to summation order (PERF.md) compounds, and the one-card
+# run's own valid/loss moved 1.4e-4 between two card runs
+SHARD_STEPS, SHARD_PARAM64, SHARD_LOSS32 = 2, 1e-9, 1e-5
+SHARD_TRAIN32 = (1e-4, 0.5)
+SHARD_TIMEOUT_S = 300
+
+
+def np_rel(ref, got):
+    """max |got - ref| / max |ref| of two arrays."""
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    return float(np.abs(ref - got).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(tag, job, cards, backend):
+    """Run ``chip_smoke.py --rank`` as ``len(cards)`` ranks of one group
+    (torchrun's variables; rank r on card ``cards[r]``), each from the
+    checkout's root.  A rank that fails or outlives SHARD_TIMEOUT_S stops
+    them all and fails the phase.  Returns the ranks' JSON results, in
+    rank order, their output directory and the wall."""
+    out = os.path.join(ROOT, "results", f"chip_smoke_20_{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    port = free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for r, card_index in enumerate(cards):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(len(cards)), RANK=str(r), LOCAL_RANK=str(card_index))
+        logs.append(open(os.path.join(out, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank",
+             json.dumps(dict(job, out=out, backend=backend))],
+            env=env, cwd=ROOT, stdout=logs[-1], stderr=subprocess.STDOUT))
+    failed = None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+                break
+            if time.perf_counter() - t0 > SHARD_TIMEOUT_S:
+                failed = f"timed out after {SHARD_TIMEOUT_S} s"
+                break
+            time.sleep(0.2)
+        if failed is None and any(p.returncode != 0 for p in procs):
+            failed = f"exit codes {[p.returncode for p in procs]}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    if failed:
+        for r in range(len(cards)):
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                print(f"[20] {tag} rank {r} log (end):\n{f.read()[-4000:]}", file=sys.stderr)
+        raise AssertionError(f"[20] {tag}: {failed}")
+    results = []
+    for r in range(len(cards)):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results, out, wall
+
+
+def dmsp_steps(over, dev, n_steps, dtypes, shard):
+    """``n_steps`` train steps of synth-dmsp's model at full width on the
+    first global batches of the train split, built as ``trainer.train``
+    builds them (``trainer.build_training``: the model from ``proc.seed``,
+    the configured optimizer, schedule, clipping, criteria and registry;
+    ``trainer.train_state``: the noise from the step's seed); with
+    ``shard``, the data-parallel step on this rank's rows.  Per dtype: the
+    losses of each step, the parameters after the last (float64, on the
+    host) and the steps' seconds (CUDA synchronised)."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.data.dataset import DataLoader, Trainset
+    from torch_fdtd_string_tpu_torch.parallel import mesh
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    args = compose(port_run.CONFIG_DIR, over)
+    task, seed = args.task, int(args.proc.seed)
+    B = int(task.batch_size)
+    data = Trainset(task.load_dir, task.load_name)
+    total_steps = int(task.total_epoch) * max(len(data) // B, 1)
+    preps = []
+    for _, batch in zip(range(n_steps), DataLoader(data, B)):
+        prep = S.prepare_batch(mesh.shard_batch(batch, B) if shard else batch,
+                               args.model.n_modes, args.model.block_size, task.sr)
+        prep.pop("analytic")
+        preps.append(S.to_device(prep, dev))
+    out = {}
+    for dtype in dtypes:
+        setup = trainer.build_training(args, dev, total_steps, dtype=dtype, sharded=shard)
+        mesh.replicate(setup.model)
+        state = trainer.train_state(setup.model, setup.optimizer, seed, 0, dev)
+        losses = []
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        for prep in preps:
+            state, ld = setup.train_step(state, {k: v.to(dtype) for k, v in prep.items()})
+            losses.append({k: float(v) for k, v in ld.items()})
+        sync()
+        out[str(dtype)] = dict(
+            losses=losses, secs=time.perf_counter() - t0,
+            params={k: q.detach().double().cpu().numpy()
+                    for k, q in setup.model.named_parameters()})
+        del setup, state
+    return out
+
+
+def logged_training(fn):
+    """``fn()`` with the trainer's device caches and train steps recorded:
+    returns ``(fn's result, the items of each cache built, each step's
+    losses)``; the losses are the global batch's (all-reduced) on every
+    rank."""
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+
+    caches, losses = [], []
+    device_cache, make_step = trainer._device_cache, S.make_train_step
+
+    def logged_cache(*a, **kw):
+        gather, n_items = device_cache(*a, **kw)
+        caches.append(n_items)
+        return gather, n_items
+
+    def logged_make_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def logged_step(state, prep):
+            state, ld = step(state, prep)
+            losses.append({k: float(v) for k, v in ld.items()})
+            return state, ld
+
+        return logged_step
+
+    trainer._device_cache, S.make_train_step = logged_cache, logged_make_step
+    try:
+        return fn(), caches, losses
+    finally:
+        trainer._device_cache, S.make_train_step = device_cache, make_step
+
+
+def rank_worker(job):
+    """One rank of a phase-20 group (``--rank``): joins it, runs the job
+    (``generate``: ``run.main`` of a fused run; ``train``: ``run.main`` of
+    ``proc.train``, then the data-parallel steps), leaves its JSON result
+    (and rank 0 its float64 parameters) in ``job["out"]``."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.parallel import mesh
+
+    r = int(os.environ["RANK"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    if job["what"] == "nccl1":
+        result = nccl_one_rank(job)
+    else:
+        if not mesh.init_distributed(backend=job["backend"]):
+            raise AssertionError("no process group")
+        result = dict(init_s=time.perf_counter() - t0, backend=job["backend"],
+                      device=str(mesh.local_device()))
+        try:
+            if job["what"] == "generate":
+                from torch_fdtd_string_tpu_torch.ops.string_kernel import (
+                    reset_launch_counts,
+                    string_chunked,
+                    string_chunked_bucketed,
+                )
+
+                reset_launch_counts()
+                t1 = time.perf_counter()
+                port_run.main(job["overrides"])
+                torch.cuda.synchronize()
+                result.update(wall=time.perf_counter() - t1,
+                              launches=string_chunked_bucketed.launches,
+                              by_spec=dict(string_chunked.launches_by_spec))
+            else:
+                t1 = time.perf_counter()
+                _, caches, losses = logged_training(lambda: port_run.main(job["overrides"]))
+                torch.cuda.synchronize()
+                result.update(train_wall=time.perf_counter() - t1, caches=caches,
+                              losses=losses)
+                steps = dmsp_steps(job["over"], mesh.local_device(), SHARD_STEPS,
+                                   (torch.float64, torch.float32), shard=True)
+                if r == 0:
+                    for dtype in (torch.float64, torch.float32):
+                        np.savez(os.path.join(job["out"], f"params{str(dtype)[-2:]}.npz"),
+                                 **steps[str(dtype)]["params"])
+                result["steps"] = {k: dict(losses=v["losses"], secs=v["secs"])
+                                   for k, v in steps.items()}
+        finally:
+            mesh.destroy()
+    with open(os.path.join(job["out"], f"rank{r}.json"), "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def nccl_one_rank(job):
+    """Phase 20 (c): a one-rank NCCL group on the card: its start, an
+    all-reduce and an all-gather through the port's collectives, and one
+    data-parallel train step (every collective of the step run) against
+    the plain step, float64."""
+    import torch.distributed as dist
+
+    from torch_fdtd_string_tpu_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.arange(16.0, device="cuda")
+        y = mesh.all_reduce(x.clone(), mean=True)
+        g = mesh.all_gather_rows(x[None])
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(x, y)) and tuple(g.shape) == (1, 16)
+        init_s = time.perf_counter() - t0
+        plain = dmsp_steps(job["over"], torch.device("cuda"), 1, (torch.float64,), False)
+        sharded = dmsp_steps(job["over"], torch.device("cuda"), 1, (torch.float64,), True)
+        key = str(torch.float64)
+        err = max(np_rel(plain[key]["params"][k], sharded[key]["params"][k])
+                  for k in plain[key]["params"])
+        loss_err = abs(sharded[key]["losses"][0]["loss"] - plain[key]["losses"][0]["loss"])
+    finally:
+        dist.destroy_process_group()
+    return dict(backend="nccl", init_s=init_s, collectives_ok=ok, param_err=err,
+                loss_err=loss_err, step_s=sharded[key]["secs"], plain_s=plain[key]["secs"])
+
+
+# the prepared item's field that the device post-processing computes with
+# batched cuBLAS products and cuFFT transforms, whose kernels the batch's
+# size chooses, so that a rank's half batch may round it otherwise: the
+# YIN track ut_f0, held within SHARD_F0_REL per frame (read: 2.43e-7 at
+# most, in 5 of 23 items).  Every other file and field, the ut and vt wavs
+# among them, bit for bit.
+SHARD_F0_REL = 1e-5
+DEVICE_KEYS = ("ut_f0",)
+
+
+def same_files(a, b, wavio, device_diff=None):
+    """Whether the directories ``a`` and ``b`` hold the same files with the
+    same contents: ``.npz`` arrays and wav samples equal bit for bit (NaN
+    where NaN), every other file byte for byte; ``None`` or what differs.
+    With ``device_diff`` (a dict), DEVICE_KEYS' largest relative
+    difference per frame is measured into it instead."""
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        return f"files {names} against {sorted(os.listdir(b))}"
+    for name in names:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if name.endswith(".npz"):
+            za, zb = np.load(pa), np.load(pb)
+            if za.files != zb.files:
+                return f"{name}: keys"
+            for key in za.files:
+                if device_diff is not None and key in DEVICE_KEYS:
+                    ref, got = np.asarray(za[key], np.float64), np.asarray(zb[key], np.float64)
+                    rel = np.abs(got - ref) / np.maximum(np.abs(ref), 1e-30)
+                    device_diff[key] = max(device_diff.get(key, 0.0), float(rel.max()))
+                elif not np.array_equal(za[key], zb[key],
+                                        equal_nan=za[key].dtype.kind in "fc"):
+                    return f"{name}: {key}"
+        elif name.endswith(".wav"):
+            if not np.array_equal(wavio.read(pa)[0], wavio.read(pb)[0]):
+                return name
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() != fb.read():
+                    return name
+    return None
+
+
+def check_sharded_generation(tag, results, save_dir, ref, classic, card):
+    """Phase 20 (a)/(d): the sharded fused run against phase 9's run of the
+    same overrides, item by item: every file and field bit for bit but
+    the device post-processing's ut_f0, within SHARD_F0_REL; its readouts
+    against phase 4's classic run; the job files rank 0 wrote; the kernel
+    launched on every rank.  Returns the group launches."""
+    from torch_fdtd_string_tpu_torch.utils import wav as wavio
+
+    for r, res in enumerate(results):
+        if res["launches"] < 1:
+            raise AssertionError(f"[20] {tag}: rank {r} launched no kernel: {res}")
+    dirs, device_diff, n_exact = {}, {}, 0
+    for where, d in (("run", save_dir), ("prep", save_dir + "-prep")):
+        base = ref if where == "run" else ref + "-prep"
+        items = sorted(x for x in os.listdir(d) if os.path.isdir(os.path.join(d, x))
+                       and x != "codes")
+        want = sorted(x for x in os.listdir(base) if os.path.isdir(os.path.join(base, x))
+                      and x != "codes")
+        if items != want:
+            raise AssertionError(f"[20] {tag}: {where} items {items} against {want}")
+        for item in items:
+            one = {} if where == "prep" else None
+            diff = same_files(os.path.join(base, item), os.path.join(d, item), wavio, one)
+            if diff:
+                raise AssertionError(f"[20] {tag}: {where} item {item} differs: {diff}")
+            if one is not None:
+                n_exact += not any(one.values())
+                for key, v in one.items():
+                    device_diff[key] = max(device_diff.get(key, 0.0), v)
+        dirs[where] = len(items)
+    same_readouts = 0
+    for item in os.listdir(save_dir):
+        npz = os.path.join(classic or "", item, "simulation.npz")
+        if classic and os.path.exists(npz):
+            z4, z = np.load(npz), np.load(os.path.join(save_dir, item, "simulation.npz"))
+            if not all(np.array_equal(z4[k], z[k]) for k in ("uout", "zout")):
+                raise AssertionError(f"[20] {tag}: {item}'s readouts differ from phase 4's")
+            same_readouts += 1
+    with open(os.path.join(save_dir, "skip_stats.json")) as f:
+        batches = json.load(f)["batches"]
+    with open(os.path.join(save_dir, "gpu_time.txt")) as f:
+        times = f.read().split("\n")[:-1]
+    with open(os.path.join(save_dir + "-prep", "_gen_meta.jsonl")) as f:
+        meta = f.readlines()
+    if [b["n"] for b in batches] != [24] or len(times) != 1 or len(meta) != 1:
+        raise AssertionError(f"[20] {tag}: job files: batches {batches}, times {times}, "
+                             f"meta {meta}")
+    launches = sum(res["launches"] for res in results)
+    print(f"[20] {tag}: {dirs['run']} run-dir items equal phase 9's bit for bit (every npz "
+          f"array, wav sample and file), {same_readouts} items' uout and zout phase 4's; "
+          f"{dirs['prep']} prepared items bit for bit (wavs included) but ut_f0, itself "
+          f"bit for bit in {n_exact} items, at most {device_diff.get('ut_f0', 0.0):.3e} "
+          f"per frame (bound {SHARD_F0_REL}); "
+          f"one skip-stats batch of 24, one timing line, one provenance line; bucketed "
+          f"launches per rank {[res['launches'] for res in results]}, by specialization "
+          f"{[res['by_spec'] for res in results]} [{card}]")
+    if device_diff.get("ut_f0", 0.0) > SHARD_F0_REL:
+        raise AssertionError(f"[20] {tag}: the device post-processing's ut_f0 {device_diff}")
+    return launches
+
+
+def check_sharded_steps(tag, results, out, ref, card):
+    """Phase 20 (b)/(d): the data-parallel steps against the single-card
+    steps ``ref`` of the same batches; the float32 parameters' distance
+    is printed, the yardstick of the float32 checkpoint's."""
+    f64, f32 = str(torch.float64), str(torch.float32)
+    err = {}
+    for dt in (f64, f32):
+        got = np.load(os.path.join(out, f"params{dt[-2:]}.npz"))
+        err[dt] = [np_rel(ref[dt]["params"][k], got[k]) for k in ref[dt]["params"]]
+    err64 = max(err[f64])
+    steps = results[0]["steps"]
+    loss64 = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-30)
+                 for a, b in zip(ref[f64]["losses"], steps[f64]["losses"]) for k in a)
+    loss32 = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-30)
+                 for a, b in zip(ref[f32]["losses"], steps[f32]["losses"]) for k in a)
+    secs = {k: [res["steps"][k]["secs"] for res in results] for k in (f64, f32)}
+    print(f"[20] {tag}: {SHARD_STEPS} synth-dmsp steps at full width, the global batch "
+          f"of {DMSP_TRAIN_BATCH} split {DMSP_TRAIN_BATCH // len(results)} per rank: "
+          f"float64 parameters {err64:.3e} of scale from the single-card steps (bound "
+          f"{SHARD_PARAM64}), losses {loss64:.3e}; float32 losses {loss32:.3e} (bound "
+          f"{SHARD_LOSS32}), parameters median {float(np.median(err[f32])):.3e}, largest "
+          f"{max(err[f32]):.3e} of scale; steps' seconds per rank float64 "
+          f"{[round(x, 3) for x in secs[f64]]} (single card {ref[f64]['secs']:.3f}), "
+          f"float32 {[round(x, 3) for x in secs[f32]]} (single card "
+          f"{ref[f32]['secs']:.3f}) [{card}]")
+    if not (err64 <= SHARD_PARAM64 and loss32 <= SHARD_LOSS32):
+        raise AssertionError(f"[20] {tag}: sharded steps off the single-card steps")
+
+
+def check_sharded_training(tag, results, run_dir, one_dir, one_losses, init, card):
+    """Phase 20 (b)/(d): ``proc.train`` for one epoch on the ranks against
+    the single-card run ``one_dir`` of the same overrides (``one_losses``
+    its steps' losses): rank 0 cached the three splits and every other
+    rank the train split alone; the run holds the epoch's valid record,
+    ``profile.json`` counts its steps, ``BEST`` and the checkpoint of its
+    last step are there; the first step's global losses are the
+    single-card step's within SHARD_LOSS32 (the same batch, weights and
+    noise); the checkpoint's float32 parameters are the single-card run's
+    within SHARD_TRAIN32 of each tensor's scale (median and largest),
+    beside how far the epoch moved each tensor from ``init``, the initial
+    weights."""
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+
+    def valid(d):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            return [r for r in map(json.loads, f) if r.get("split") == "valid"]
+
+    v1, v2 = valid(one_dir), valid(run_dir)
+    spe = int(v1[0]["step"])
+    caches = [res["caches"] for res in results]
+    with open(os.path.join(run_dir, "profile.json")) as f:
+        steps = json.load(f)["train_step"]["count"]
+    ckdir = trainer._ckpt_dir(run_dir)
+    if not (len(caches[0]) == 3 and all(c == caches[0][:1] for c in caches[1:])
+            and [int(r["step"]) for r in v2] == [spe] and steps == spe
+            and all(len(res["losses"]) == spe for res in results) and len(one_losses) == spe
+            and os.path.exists(os.path.join(ckdir, "BEST"))):
+        raise AssertionError(f"[20] {tag}: caches {caches}, valid records {v2}, "
+                             f"{steps} steps, checkpoints {os.listdir(ckdir)}")
+    loss_err = [max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-30) for k in a)
+                for a, b in zip(one_losses, results[0]["losses"])]
+    load = lambda d: torch.load(os.path.join(trainer._ckpt_dir(d), f"step_{spe}.pt"),
+                                map_location="cpu", weights_only=True)["params"]
+    one, two = load(one_dir), load(run_dir)
+    errs = {k: np_rel(one[k].numpy(), two[k].numpy()) for k in one}
+    worst = max(errs, key=errs.get)
+    median = float(np.median(list(errs.values())))
+    moved = {k: np_rel(one[k].numpy(), init[k]) for k in one}
+    print(f"[20] {tag}: proc.train, one epoch of {spe} steps of {DMSP_TRAIN_BATCH} "
+          f"({DMSP_TRAIN_BATCH // len(results)} rows per rank): the ranks' device caches "
+          f"{caches} items, profile.json train_step {steps}; the steps' global losses "
+          f"against the single card's, largest relative difference per step "
+          f"{[f'{e:.2e}' for e in loss_err]} (first step bound {SHARD_LOSS32}); valid/loss "
+          f"{v2[0]['valid/loss']:.6f} (single card {v1[0]['valid/loss']:.6f}); the float32 "
+          f"checkpoint of scale from the single-card run's: median over "
+          f"{len(errs)} tensors {median:.3e}, largest "
+          f"{errs[worst]:.3e} ({worst}, which the epoch moved {moved[worst]:.3e} from its "
+          f"initial weights; median move {float(np.median(list(moved.values()))):.3e}; "
+          f"bound {SHARD_TRAIN32}); run.main per rank "
+          f"{[round(res['train_wall'], 2) for res in results]} s [{card}]")
+    if (loss_err[0] > SHARD_LOSS32 or median > SHARD_TRAIN32[0]
+            or errs[worst] > SHARD_TRAIN32[1]):
+        raise AssertionError(f"[20] {tag}: the sharded run is off the single-card one")
+
+
+def drive_phase20(fused_dir, classic_dir, train_over, dev, card):
+    """Phase 20: sharded generation and training on two ranks of the card
+    (gloo), a one-rank NCCL group, and both paths across two cards on
+    NCCL where there are two.  Returns the bucketed launches of the
+    sharded generation runs."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    launches = 0
+    over = FUSED + [f"task.root_dir={os.path.join(ROOT, 'results')}",
+                    "task.randomize_name=false"]
+    runs = [("(a)", [0, 0], "gloo")]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("(d)", [0, 1], "nccl"))
+    else:
+        print(f"[20] (d) skipped: {torch.cuda.device_count()} card on this host; the "
+              "two-card NCCL runs need two")
+    ref = dmsp_steps(train_over, dev, SHARD_STEPS, (torch.float64, torch.float32), False)
+    # proc.train for one epoch, no proc.test, on one card: what the ranks'
+    # run is held to
+    epoch = train_over + ["task.total_epoch=1", "proc.test=false"]
+    one_dir = os.path.join(ROOT, "results", "chip_smoke_20_train1")
+    shutil.rmtree(one_dir, ignore_errors=True)
+    (wall1, _), _, one_losses = logged_training(lambda: train_run(epoch, one_dir))
+    init = {k: q.detach().numpy() for k, q in trainer.build_training(
+        compose(port_run.CONFIG_DIR, epoch), torch.device("cpu"), 1).model.named_parameters()}
+    args = dict(o.split("=", 1) for o in train_over)
+    prep_dir = os.path.join(args["task.load_dir"], args["task.load_name"])
+    print(f"[20] (b) proc.train on one card, one epoch: wall {wall1:.2f} s [{card}]")
+    torch.cuda.empty_cache()
+    for tag, cards, backend in runs:
+        name = f"chip_smoke_20{tag[1]}"
+        for d in (name, name + "-prep"):
+            shutil.rmtree(os.path.join(ROOT, "results", d), ignore_errors=True)
+        results, _, wall = launch_ranks(f"gen{tag[1]}", dict(
+            what="generate", overrides=over + [f"task.save_name={name}"]), cards, backend)
+        print(f"[20] {tag} experiment=nsynth-like task.num_samples=24 (B=24, 1 s) on 2 "
+              f"{backend} ranks, cards {cards}: wall {wall:.2f} s with start-up; per rank "
+              f"group start {[round(x['init_s'], 2) for x in results]} s, run.main "
+              f"{[round(x['wall'], 2) for x in results]} s"
+              + (" (two ranks on one card measure the path, not scaling)"
+                 if cards[0] == cards[1] else "") + f" [{card}]")
+        launches += check_sharded_generation(
+            tag, results, os.path.join(ROOT, "results", name), fused_dir, classic_dir, card)
+        step_tag = "(b)" if tag == "(a)" else "(d)"
+        # rank 0 writes the host caches anew, the other rank loads them
+        for path in glob.glob(os.path.join(prep_dir, "_prep_*.npz")):
+            os.remove(path)
+        run_dir = os.path.join(ROOT, "results", f"chip_smoke_20{step_tag[1]}_train")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        results, out, wall = launch_ranks(f"steps{tag[1]}", dict(
+            what="train", over=train_over, overrides=epoch + [
+                f"task.root_dir={os.path.dirname(run_dir)}",
+                f"task.save_name={os.path.basename(run_dir)}"]), cards, backend)
+        print(f"[20] {step_tag} data-parallel training on 2 {backend} ranks, cards {cards}: "
+              f"wall {wall:.2f} s with start-up [{card}]")
+        check_sharded_training(step_tag, results, run_dir, one_dir, one_losses, init,
+                               card)
+        check_sharded_steps(step_tag, results, out, ref, card)
+    (res,), _, wall = launch_ranks("nccl", dict(what="nccl1", over=train_over), [0], "nccl")
+    print(f"[20] (c) one-rank NCCL group: started in {res['init_s']:.2f} s, all-reduce and "
+          f"all-gather {'right' if res['collectives_ok'] else 'WRONG'}; one data-parallel "
+          f"step (float64, batch {DMSP_TRAIN_BATCH}) against the plain step: parameters "
+          f"{res['param_err']:.3e} of scale, loss {res['loss_err']:.3e}; step "
+          f"{res['step_s']:.3f} s, plain {res['plain_s']:.3f} s; wall {wall:.2f} s [{card}]")
+    if not (res["collectives_ok"] and res["param_err"] <= SHARD_PARAM64):
+        raise AssertionError(f"[20] (c): {res}")
+    print(f"[20] phase wall {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return launches
+
+
 def add_gmres(acc, by_spec):
     for spec, n in by_spec.items():
         if spec.endswith("-gmres"):
@@ -2456,10 +2996,36 @@ def ab_compare(roots, paths):
     return same
 
 
+def sharded_only(dev, card, t_start):
+    """``--sharded``: after phases 1-2, phase 9's fused run and phase 18's
+    corpus, what phase 20 compares with, then phase 20 (with (d) on a host
+    of two cards or more)."""
+    from torch_fdtd_string_tpu_torch.core import analytic
+
+    analytic.root_tables()
+    head = drive_fused(9, "nsynth-like (fused preprocessing, the default)", FUSED,
+                       PREP_KEYS, 256, card)
+    corpus = drive_fused(18, "corpus recipe B=48, two batches (seed 1818)", TRAIN_CORPUS,
+                         PREP_KEYS_CORPUS, 8, card)
+    prep_dir = corpus["save_dir"] + "-prep"
+    train_corpus_split(prep_dir)
+    over = DMSP_TRAIN + [f"task.load_dir={os.path.dirname(prep_dir)}",
+                         f"task.load_name={os.path.basename(prep_dir)}"]
+    drive_phase20(head["save_dir"], None, over, dev, card)
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_worker(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-one"]:
         ab_times(os.path.abspath(sys.argv[2]), sys.argv[3])
         return 0
@@ -2517,6 +3083,9 @@ def main():
     print(f"[2] {len(ptxas)} instances compiled; ptxas report:")
     for name, lines in ptxas.items():
         print(f"[2]   {name}: {' | '.join(lines)}")
+
+    if sys.argv[1:2] == ["--sharded"]:
+        return sharded_only(dev, card, t_start)
 
     # ---- 3. kernel vs plain version on the card, float32, per specialization
     shape_b = nsynth_inputs(NSYNTH, dev)
@@ -2729,13 +3298,18 @@ def main():
     print(f"[17] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 18. DMSP training at full width on a fresh corpus ----------------------
-    drive_dmsp_train(dev, card)
+    train = drive_dmsp_train(dev, card)
     print(f"[18] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 19. the classic pipeline on phase 4's run; presets ---------------------
     for spec, n in drive_phase19(pluck, head["save_dir"] + "-prep", dev, card).items():
         launches[spec] += n
     print(f"[19] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 20. the sharded paths: two ranks on the card, NCCL ----------------------
+    launches["bucketed"] += drive_phase20(head["save_dir"], pluck["save_dir"], train["over"],
+                                          dev, card)
+    print(f"[20] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 11-12. the rescue ladder ----------------------------------------------
     left = max(RUN_TARGET_S - (time.perf_counter() - t_start) - LADDER12_S, 30.0)

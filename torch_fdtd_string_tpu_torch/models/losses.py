@@ -14,6 +14,7 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from ..parallel import mesh
 from ..utils.audio import mel_filterbank
 
 
@@ -60,18 +61,34 @@ def l1_loss(preds, target, scale_invariance=True, weight=1.0):
     return weight * _l1(preds, target)
 
 
-def f0_loss(preds_f0, target_f0, scale=1.0, weight=10.0):
+def f0_loss(preds_f0, target_f0, scale=1.0, weight=10.0, sharded=False):
     """Normalised f0 L1 (loss.py:268-286).
 
     Normalisation uses the within-batch mean/std of the target track
     (reference parity), so the value depends on batch composition; the
-    Hz-denominated ``f0_error`` of the score tables does not.
+    Hz-denominated ``f0_error`` of the score tables does not.  With
+    ``sharded`` (a rank's rows of a data-parallel batch) the mean and std
+    are the global batch's, from sums over the ranks, as the JAX mesh's
+    global arrays give them; the target carries no gradient.
     """
-    mean = torch.mean(target_f0)
-    std = torch.std(target_f0 - mean, correction=0) + 1e-12
+    if sharded:
+        mean, std = _global_mean_std(target_f0.detach())
+    else:
+        mean = torch.mean(target_f0)
+        std = torch.std(target_f0 - mean, correction=0)
+    std = std + 1e-12
     p = (preds_f0 - mean) / std * scale
     t = (target_f0 - mean) / std * scale
     return weight * _l1(p, t)
+
+
+def _global_mean_std(x):
+    """Mean and (population) std of ``x`` over every rank's elements, two
+    passes as the one-card ``torch.std`` of the centred values takes them."""
+    total = mesh.all_reduce(torch.stack([x.new_tensor(float(x.numel())), x.sum()]))
+    mean = total[1] / total[0]
+    sq = mesh.all_reduce(torch.sum((x - mean) ** 2))
+    return mean, torch.sqrt(sq / total[0])
 
 
 def fk_loss(preds_fk, target_fk, scale=1.0, weight=1.0):
@@ -206,9 +223,11 @@ def pde_loss(ut, u0, x, t, f0, kappa, sig0, sig1,
     return w_ic * val_ic + w_bc * val_bc + w_r * val_r
 
 
-def build_loss_registry(sr, Nt):
+def build_loss_registry(sr, Nt, sharded=False):
     """Loss registry keyed like reference synthesize.py:135-148: name ->
-    (function, the prediction-dict keys of its arguments)."""
+    (function, the prediction-dict keys of its arguments).  ``sharded``:
+    the registry of a data-parallel train step, whose ``f0`` normalises by
+    the global batch (:func:`f0_loss`)."""
     size_1 = min(Nt, 1024)
     size_2 = 2 ** int(math.log2(size_1) - 1)
     size_3 = 2 ** int(math.log2(size_1) - 2)
@@ -220,7 +239,8 @@ def build_loss_registry(sr, Nt):
     return {
         "l1": (partial(l1_loss, scale_invariance=True), ("preds", "target")),
         "mse": (mse_loss, ("preds", "target")),
-        "f0": (partial(f0_loss, scale=1.0, weight=10.0), ("preds_f0", "target_f0")),
+        "f0": (partial(f0_loss, scale=1.0, weight=10.0, sharded=sharded),
+               ("preds_f0", "target_f0")),
         "fk": (partial(fk_loss, scale=1.0, weight=1.0), ("preds_fk", "target_fk")),
         "sisdr": (sisdr_loss, ("preds", "target")),
         "fft": (partial(fft_loss, weight=10.0), ("preds", "target")),

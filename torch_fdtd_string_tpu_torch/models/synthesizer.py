@@ -7,7 +7,8 @@ and AM modulation of an (in)harmonic oscillator bank plus a filtered-noise
 branch; the model is trained to approximate the FDTD engine.
 
 The noise branch draws its uniform samples through :func:`uniform`, from
-the ``torch.Generator`` the caller passes to ``forward``.  The cores split
+the ``torch.Generator`` the caller passes to ``forward``, or as a rank's
+rows of a global batch's draw (:class:`NoiseRows`).  The cores split
 their forward into ``modulate`` (the FM/AM blocks), ``harmonic`` (the modal
 bank) and ``noise``, and the synthesizer into ``condition`` (the mode
 estimator and the conditioning features) and the core, so that each stage
@@ -32,6 +33,24 @@ from .physmodes import PhysicsModeEstimator
 def uniform(shape, generator, device, dtype):
     """The noise branch's uniform draw in [0, 1)."""
     return torch.rand(shape, generator=generator, device=device, dtype=dtype)
+
+
+class NoiseRows:
+    """The noise of a rank's ``rows`` (a slice) of a global batch of
+    ``batch``: each draw is the whole batch's, from ``generator``, cut to
+    the rows, so the rank's noise equals those rows of the single-card
+    draw and every rank's generator advances alike."""
+
+    def __init__(self, generator, rows, batch):
+        self.generator, self.rows, self.batch = generator, rows, batch
+
+
+def _noise(shape, generator, device, dtype):
+    if isinstance(generator, NoiseRows):
+        whole = uniform((generator.batch,) + tuple(shape[1:]), generator.generator, device,
+                        dtype)
+        return whole[generator.rows]
+    return uniform(shape, generator, device, dtype)
 
 
 def t60_to_sigma_frames(T60, f_0, K):
@@ -70,7 +89,7 @@ class _Core(nn.Module):
     def _filtered_noise(self, param, lengths, generator):
         impulse = amp_to_impulse_response(param, self.block_size)
         shape = tuple(impulse.shape[:2]) + (self.block_size,)
-        noise = uniform(shape, generator, param.device, param.dtype) * 2.0 - 1.0
+        noise = _noise(shape, generator, param.device, param.dtype) * 2.0 - 1.0
         noise = fft_convolve(noise, impulse)
         return noise.reshape(noise.shape[0], -1, 1)[:, :lengths]
 

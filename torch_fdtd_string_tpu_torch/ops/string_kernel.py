@@ -393,8 +393,21 @@ def bucket_groups(f0, kappa, alpha, *, k, theta_t, lambda_c, M_t, M_l):
     return groups
 
 
+def shard_groups(groups, rows):
+    """The groups of :func:`bucket_groups` of a whole batch, cut to the
+    contiguous ``rows`` (a slice) and renumbered from 0: a rank's launch
+    groups at the whole batch's widths."""
+    out = []
+    for width, g in groups:
+        g = np.asarray(g, np.int64)
+        g = g[(g >= rows.start) & (g < rows.stop)] - rows.start
+        if len(g):
+            out.append((width, np.sort(g)))
+    return out
+
+
 def string_chunked_bucketed(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
-                            M_t, M_l, host_bounds=None, **kw):
+                            M_t, M_l, host_bounds=None, groups=None, **kw):
     """Width-bucketed :func:`string_chunked`: same arguments and results.
 
     The strings of a batch live on grids of very different sizes (they
@@ -406,12 +419,15 @@ def string_chunked_bucketed(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *,
     order of the block reductions.
 
     ``host_bounds`` is ``(f0, kappa, alpha)`` as host arrays, the sampler's
-    copies; without it they are copied from the inputs.  CUDA tensors
+    copies; without it they are copied from the inputs.  ``groups`` gives
+    the ``(W_g, rows)`` groups instead (a rank's rows of a sharded batch,
+    grouped at the widths of the whole batch's :func:`bucket_groups`, so
+    that every string runs as in the single-card launch).  CUDA tensors
     launch one kernel per group, each on its own stream, joined to the
     current stream before return; CPU tensors run
     :func:`string_chunked_bucketed_reference`.
     """
-    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw, groups)
     args = (f0, kappa, alpha, pos, t60, u1, u2, z1, z2)
     if f0.is_cuda:
         out = _launch_cuda(c, *args, *exc, groups=groups)
@@ -427,17 +443,18 @@ string_chunked_bucketed.launches = 0
 
 
 def string_chunked_bucketed_reference(f0, kappa, alpha, pos, t60, u1, u2, z1,
-                                      z2, *, M_t, M_l, host_bounds=None, **kw):
+                                      z2, *, M_t, M_l, host_bounds=None, groups=None,
+                                      **kw):
     """Plain PyTorch version of :func:`string_chunked_bucketed` on any
     device: :func:`_reference` per group at the group's width, scattered
     back into the batch."""
-    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw, groups)
     return _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2,
                                z1, z2, *exc)
 
 
 def string_chunked_rerun(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *, rows,
-                         out, M_t, M_l, host_bounds=None, **kw):
+                         out, M_t, M_l, host_bounds=None, groups=None, **kw):
     """Re-run the strings ``rows`` of a batch, writing their results in
     place into ``out``: the ``(uout, zout, aux)`` of an earlier
     :func:`string_chunked_bucketed` call on the same inputs (the rescue
@@ -446,11 +463,14 @@ def string_chunked_rerun(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *, rows,
     Each string runs at its width group's width in the whole batch's
     :func:`bucket_groups`, one launch per group that holds a row of
     ``rows``, so its result equals a whole-batch call with the same
-    keywords bit for bit, and the other rows keep ``out``'s values.  With
+    keywords bit for bit, and the other rows keep ``out``'s values
+    (``groups``: the batch's groups as :func:`string_chunked_bucketed`
+    takes them).  With
     ``gmres_rescue``, ``aux["gmres_iters"]`` is added on the CPU.  Returns
     ``out``.
     """
-    c, groups, exc = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw)
+    c, groups, exc = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw,
+                                   groups)
     args = (f0, kappa, alpha, pos, t60, u1, u2, z1, z2)
     if not groups:
         return out
@@ -462,35 +482,46 @@ def string_chunked_rerun(f0, kappa, alpha, pos, t60, u1, u2, z1, z2, *, rows,
 
 
 def string_chunked_rerun_reference(f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
-                                   *, rows, out, M_t, M_l, host_bounds=None, **kw):
+                                   *, rows, out, M_t, M_l, host_bounds=None, groups=None,
+                                   **kw):
     """Plain PyTorch version of :func:`string_chunked_rerun` on any device:
     :func:`_reference` per group that holds a row of ``rows``, at the
     group's width, written in place into ``out``."""
-    c, groups, exc = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw)
+    c, groups, exc = _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw,
+                                   groups)
     if not groups:
         return out
     return _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2, z1,
                                z2, *exc, out=out)
 
 
-def _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw):
+def _rerun_groups(f0, kappa, alpha, rows, M_t, M_l, host_bounds, kw, groups=None):
     """:func:`_bucketing` of a re-run: the whole batch's groups, each cut to
     its rows in ``rows``, the empty ones dropped."""
-    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw)
+    c, groups, exc = _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw, groups)
     rows = np.asarray(rows, np.int64)
     groups = [(w, np.intersect1d(g, rows)) for w, g in groups]
     return c, [(w, g) for w, g in groups if len(g)], exc
 
 
-def _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw):
-    """The validated constants, the width groups of a bucketed call and its
-    ``(bow, hammer, p_a)`` inputs."""
+def _bucketing(f0, kappa, alpha, M_t, M_l, host_bounds, kw, groups=None):
+    """The validated constants, the width groups of a bucketed call (the
+    given ``groups``, else :func:`bucket_groups`) and its ``(bow, hammer,
+    p_a)`` inputs."""
     c = _consts(M_t=M_t, M_l=M_l, M_t_sem=None, **_kernel_kw(kw))
-    if host_bounds is None:
-        host_bounds = (f0.amin(dim=1).cpu().numpy(), kappa.cpu().numpy(),
-                       alpha.cpu().numpy())
-    groups = bucket_groups(*host_bounds, k=c.k, theta_t=c.theta_t,
-                           lambda_c=c.lambda_c, M_t=M_t, M_l=M_l)
+    if groups is not None:
+        rows = np.sort(np.concatenate([np.asarray(g, np.int64) for _, g in groups]))
+        if not np.array_equal(rows, np.arange(f0.shape[0])):
+            raise ValueError("groups must hold every row of the batch exactly once")
+        widest = padded_width(M_t, M_l)
+        if any(not 0 < w <= widest for w, _ in groups):
+            raise ValueError(f"a group's width outside 1..{widest}")
+    else:
+        if host_bounds is None:
+            host_bounds = (f0.amin(dim=1).cpu().numpy(), kappa.cpu().numpy(),
+                           alpha.cpu().numpy())
+        groups = bucket_groups(*host_bounds, k=c.k, theta_t=c.theta_t,
+                               lambda_c=c.lambda_c, M_t=M_t, M_l=M_l)
     return c, groups, (kw.get("bow"), kw.get("hammer"), _mms_amplitude(c, kw.get("p_a")))
 
 

@@ -14,6 +14,19 @@ synthesizer's training) and ``proc.test`` (its scoring of a test split).
 The simulation, the preprocessing's modal bank, training and scoring run
 on the card unless ``proc.cpu=true``.
 
+On several cards, one process (rank) per card:
+
+    torchrun --nproc_per_node=N -m torch_fdtd_string_tpu_torch.run \\
+        experiment=nsynth-like task.num_samples=96
+
+``proc.simulate`` and ``proc.train`` shard each batch over the ranks
+(``parallel/mesh.py``; ``task.batch_size`` must divide by N); rank 0 alone
+prints the config, writes the run directory's ``config_tree.txt`` and
+``codes/`` snapshot, and runs ``proc.evaluate``, ``proc.summarize``,
+``proc.process_training_data`` and ``proc.test``.  Across hosts, set
+``FDTD_COORD=host:port``, ``FDTD_NPROCS`` and ``FDTD_PROC_ID`` (with
+``LOCAL_RANK``) in each process instead.
+
     python -m torch_fdtd_string_tpu_torch.run experiment=process_training_data \\
         task.result_dir=<simulation run> task.save_dir=<prepared dir>
     python -m torch_fdtd_string_tpu_torch.run experiment=evaluate task.load_dir=<run>
@@ -32,6 +45,9 @@ from shutil import copyfile
 
 import numpy as np
 
+import torch
+
+from torch_fdtd_string_tpu_torch.parallel import mesh
 from torch_fdtd_string_tpu_torch.tasks import (evaluate, process_training_data,
                                                simulate, summarize, trainer)
 from torch_fdtd_string_tpu_torch.utils.config import compose, print_config
@@ -60,7 +76,24 @@ def backup_code(src_dir, run_dir):
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = compose(CONFIG_DIR, argv)
+    # several ranks (torchrun, or FDTD_COORD / FDTD_NPROCS / FDTD_PROC_ID):
+    # join their group before anything touches the card (JAX run.py:63-71)
+    owned = not torch.distributed.is_initialized()
+    if mesh.init_distributed(cpu=bool(args.proc.cpu)):
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        print(f"[run] distributed: process {mesh.rank()}/{mesh.world_size()}, "
+              f"{torch.distributed.get_backend()} on {mesh.local_device(args.proc.cpu)}, "
+              f"{cards} local card(s)", flush=True)
+    try:
+        return _main(args)
+    finally:
+        if owned:
+            mesh.destroy()
+
+
+def _main(args):
     np.random.seed(args.proc.seed)
+    lead = mesh.rank() == 0
 
     args.cwd = ROOT
     if args.task.save_name is not None:
@@ -86,12 +119,13 @@ def main(argv=None):
         raise ValueError("task.ckpt_dir names another run's checkpoints; it cannot be given "
                          "with proc.train=true proc.test=true")
 
-    if args.proc.simulate or args.proc.get("train"):
+    if lead and (args.proc.simulate or args.proc.get("train")):
         os.makedirs(save_dir, exist_ok=True)
         backup_code(PKG_DIR, save_dir)
         print_config(args, os.path.join(save_dir, "config_tree.txt"))
-    else:
+    elif lead:
         print_config(args)
+    mesh.barrier()  # the run directory exists before any rank writes there
 
     if args.proc.simulate:
         model_name = (
@@ -101,19 +135,26 @@ def main(argv=None):
         simulate.run(args, save_dir, model_name, n_samples=n_samples)
 
     load_dir = save_dir if args.task.get("load_dir") is None else args.task.load_dir
-    if args.proc.evaluate:
+    single = [name for name in ("evaluate", "summarize", "process_training_data")
+              if args.proc.get(name)]
+    if single and mesh.world_size() > 1 and lead:
+        print(f"[run] proc.{', proc.'.join(single)} on rank 0 alone", flush=True)
+    if args.proc.evaluate and lead:
         evaluate.evaluate(load_dir, plot=args.task.get("plot", False))
 
-    if args.proc.summarize:
+    if args.proc.summarize and lead:
         summarize.summarize(load_dir)
 
-    if args.proc.process_training_data:
+    if args.proc.process_training_data and lead:
         process_training_data.process(args)
+    mesh.barrier()  # the prepared items exist before any rank trains on them
 
     if args.proc.get("train"):
         trainer.train(args, save_dir)
 
-    if args.proc.get("test"):
+    if args.proc.get("test") and lead:
+        if mesh.world_size() > 1:
+            print("[run] proc.test on rank 0 alone", flush=True)
         args.task.ckpt_dir = args.task.get("ckpt_dir") or save_dir
         trainer.evaluate(args, save_dir)
     return save_dir

@@ -71,7 +71,9 @@ from ..core import params as prm
 from ..core.engine import (BowParams, Carry, HammerParams, SimConsts,
                            StringParams, simulate_chunk)
 from ..ops import fdm
-from ..ops.string_kernel import string_chunked_bucketed, string_chunked_rerun
+from ..ops.string_kernel import (bucket_groups, shard_groups, string_chunked_bucketed,
+                                 string_chunked_rerun)
+from ..parallel import mesh
 from ..utils import audio
 from ..utils import misc as ms
 from ..utils import wav as wavio
@@ -79,15 +81,14 @@ from ..utils import wav as wavio
 
 def select_device(cpu=False, precision="single"):
     """The CPU for ``proc.cpu=true``, else CUDA in either precision (an H100
-    runs float64 natively); raises when CUDA is asked for and the host has
-    no usable card."""
-    if cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
+    runs float64 natively): ``cuda:<LOCAL_RANK>`` in a multi-rank run
+    (``parallel/mesh.py``), else ``cuda``; raises when CUDA is asked for
+    and the host has no usable card."""
+    if not cpu and not torch.cuda.is_available():
         raise RuntimeError(
             f"a {precision}-precision run needs a CUDA card and torch finds "
             "none; pass proc.cpu=true to run on the CPU")
-    return torch.device("cuda")
+    return mesh.local_device(cpu)
 
 
 def _not_ported(what, item):
@@ -188,6 +189,28 @@ class RunStats:
         with self._lock:
             tot, n = self.phases.get(phase, (0.0, 0))
             self.phases[phase] = (tot + dt, n + 1)
+
+    def snapshot(self):
+        """What :meth:`merge` takes from each rank."""
+        with self._lock:
+            return (self.link_bytes, self.state_bytes, dict(self.phases),
+                    list(self.width_spread))
+
+    def merge(self, snapshots):
+        """Every rank's :meth:`snapshot` (this rank's among them), summed:
+        the bytes, and each writer phase's seconds and calls.  The width
+        spreads are the whole batch's on every rank, so rank 0's stay."""
+        if len(snapshots) < 2:
+            return
+        with self._lock:
+            self.link_bytes = sum(s[0] for s in snapshots)
+            self.state_bytes = sum(s[1] for s in snapshots)
+            self.phases = {}
+            for _, _, phases, _ in snapshots:
+                for key, (t, n) in phases.items():
+                    tot, cnt = self.phases.get(key, (0.0, 0))
+                    self.phases[key] = (tot + t, cnt + n)
+            self.width_spread = list(snapshots[0][3])
 
     def save_timing(self):
         """Per phase ``{total_s, n, ms_each}``, as the JAX package's
@@ -308,7 +331,7 @@ POSTPROC_G = 32
 
 def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
             device, sr=48000, postproc_keep=None, stats=None, kernel_gmres=None,
-            chunk_size=None, save_path=None, skip_nan=True):
+            chunk_size=None, save_path=None, skip_nan=True, rows=None):
     """Run one batch through the width-bucketed string kernel (steps
     2..Nt-1), or a float64 batch through the scan engine
     (:func:`process_engine`, in chunks of ``chunk_size`` samples, writing
@@ -333,28 +356,52 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
     read (``string_chunked_rerun``: only those rows, at their widths in the
     batch's grouping, so the result equals a whole-batch re-run); the first
     pass's ``(B,)`` NaN flags go to ``kernel_gmres["nan_first_pass"]``.
+
+    ``rows`` (a slice; a rank's share of a sharded batch,
+    ``parallel/mesh.py::shard_rows``) runs those strings of the whole
+    batch's draws alone, and every result is theirs.  What the whole batch
+    decides is decided from all of it, as the single-card run decides it:
+    the width groups of the kernel's launch (:func:`shard_groups`), so
+    each string runs at its single-card width and equals its single-card
+    result bit for bit, the fused path's host-or-device post-processing,
+    and the kernel instance (``consts``).  A float64 batch's engine exits
+    its coupling sweeps when the rank's strings have converged, so there
+    the rows equal the single-card run's to the sweeps' tolerance.
     """
     stats = stats or RunStats()
+    groups = spread = None
+    if rows is not None:
+        B_all = state.u0.shape[0]
+        if state.u0.dtype != np.float64:
+            groups = shard_groups(bucket_groups(
+                state.f0[:, 2:Nt], state.kappa, state.alpha, k=consts.k,
+                theta_t=consts.theta_t, lambda_c=consts.lambda_c, M_t=consts.M_t,
+                M_l=consts.M_l), rows)
+            if postproc_keep is not None:
+                spread = _widths_spread(state, consts)
+        state, bow, hammer, bow_mask, hammer_mask = shard_draws(
+            rows, B_all, state, bow, hammer, bow_mask, hammer_mask)
     if state.u0.dtype == np.float64:
         return _process_double(state, bow, hammer, bow_mask, hammer_mask, consts,
                                Nt, chunk_size or Nt, device, sr, postproc_keep,
-                               stats, save_path, skip_nan)
+                               stats, save_path, skip_nan,
+                               0 if rows is None else rows.start)
     args, kwargs = kernel_inputs(state, consts, Nt, device, bow, hammer,
                                  bow_mask, hammer_mask)
     # host copies of the draws for the bucketing bounds
     host_bounds = (state.f0[:, 2:Nt], state.kappa, state.alpha)
     uout_d, zout_d, aux = string_chunked_bucketed(*args, host_bounds=host_bounds,
-                                                  **kwargs)
+                                                  groups=groups, **kwargs)
     if kernel_gmres is not None:
         nan_first = torch.isnan(uout_d.sum(-1)).cpu().numpy()
         stats.count(nan_first.nbytes)
         kernel_gmres["nan_first_pass"] = nan_first
-        rows = np.nonzero(nan_first)[0]
-        if len(rows):
+        nan_rows = np.nonzero(nan_first)[0]
+        if len(nan_rows):
             print(f"[simulate] kernel-GMRES re-run for diverged element(s) "
-                  f"{rows.tolist()}", flush=True)
-            string_chunked_rerun(*args, rows=rows, out=(uout_d, zout_d, aux),
-                                 host_bounds=host_bounds,
+                  f"{nan_rows.tolist()}", flush=True)
+            string_chunked_rerun(*args, rows=nan_rows, out=(uout_d, zout_d, aux),
+                                 host_bounds=host_bounds, groups=groups,
                                  **dict(kwargs, gmres_rescue=True))
     np_dt = state.u0.dtype
     B, T = uout_d.shape
@@ -389,9 +436,8 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
             from ..ops import postproc as pp
 
             G = POSTPROC_G
-            spread = pp.host_widths_spread(
-                np.asarray(state.f0, np.float32), np.asarray(state.kappa),
-                consts.k, consts.theta_t, consts.lambda_c)
+            if spread is None:
+                spread = _widths_spread(state, consts)
             stats.width_spread.append(spread)
             if spread < G:
                 keep_idx, keep_grid = postproc_keep
@@ -419,15 +465,32 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
             v_r, F_H, u_H, sig0, sig1)
 
 
+def _widths_spread(state, consts):
+    """The batch's width spread (``ops/postproc.py::host_widths_spread``)."""
+    from ..ops import postproc as pp
+
+    return pp.host_widths_spread(np.asarray(state.f0, np.float32), np.asarray(state.kappa),
+                                 consts.k, consts.theta_t, consts.lambda_c)
+
+
+def shard_draws(rows, B, *draws):
+    """The rows ``rows`` of each of a batch's draws: the params dataclasses'
+    batch-major arrays, and masks."""
+    return tuple(d[rows] if isinstance(d, np.ndarray) else _slice_batch(d, rows, B)
+                 for d in draws)
+
+
 def _process_double(state, bow, hammer, bow_mask, hammer_mask, consts, Nt,
-                    chunk_size, device, sr, postproc_keep, stats, save_path, skip_nan):
+                    chunk_size, device, sr, postproc_keep, stats, save_path, skip_nan,
+                    first_row=0):
     """:func:`process` of a float64 batch: the scan engine, as the JAX
     package runs every float64 run.  A fused run gets its readouts as
     tensors and its state as a :class:`_DeviceState` with no device
     post-processing: every item takes the host build."""
     out = process_engine(state, bow, hammer, bow_mask, hammer_mask, consts, Nt,
                          chunk_size, device, collect_state=consts.collect_state,
-                         save_path=save_path, sr=sr, skip_nan=skip_nan)
+                         save_path=save_path, sr=sr, skip_nan=skip_nan,
+                         first_row=first_row)
     stats.count(sum(x.nbytes for x in out if isinstance(x, np.ndarray)))
     if postproc_keep is None:
         return out
@@ -442,7 +505,7 @@ def _process_double(state, bow, hammer, bow_mask, hammer_mask, consts, Nt,
 
 def process_engine(state, bow, hammer, bow_mask, hammer_mask,
                    consts: SimConsts, Nt, chunk_size, device, collect_state=True,
-                   save_path=None, sr=48000, skip_nan=True):
+                   save_path=None, sr=48000, skip_nan=True, first_row=0):
     """One batch through the scan engine (``core/engine.py``), the JAX
     ``process`` engine branch: steps 2..Nt-1 in chunks of ``chunk_size - 2``
     steps (the reference's 2-sample overlap, simulate.py:57-107, which the
@@ -452,7 +515,7 @@ def process_engine(state, bow, hammer, bow_mask, hammer_mask,
     ``collect_state``).
 
     With ``save_path``, every string not NaN so far has its readouts up to
-    the chunk's end written to ``{save_path}-{b}/output{-u,-z,}.wav``
+    the chunk's end written to ``{save_path}-{first_row + b}/output{-u,-z,}.wav``
     (PCM_16, not normalized) after each chunk, as the JAX package writes
     them with ``task.write_during_process``.  Without ``skip_nan`` a string
     that is NaN at a chunk's end raises ``FloatingPointError`` (the JAX
@@ -489,7 +552,7 @@ def process_engine(state, bow, hammer, bow_mask, hammer_mask,
                     f"string(s) {bad.tolist()} NaN by step {ce} (task.skip_nan=false)")
         if save_path is not None:
             _write_readouts(save_path, [o["uout"] for o in outs],
-                            [o["zout"] for o in outs], sr)
+                            [o["zout"] for o in outs], sr, first_row)
     cat = lambda key: np.concatenate([o[key] for o in outs], axis=0).T  # (B, T)
     sig0, sig1 = outs[-1]["sig0"][-1], outs[-1]["sig1"][-1]
     state_u = state_z = None
@@ -505,16 +568,16 @@ def process_engine(state, bow, hammer, bow_mask, hammer_mask,
             cat("u_H") / consts.k, sig0, sig1)
 
 
-def _write_readouts(save_path, uout_chunks, zout_chunks, sr):
+def _write_readouts(save_path, uout_chunks, zout_chunks, sr, first_row=0):
     """The readouts so far, ``(T, B)`` chunks, as each non-NaN string's
-    ``{save_path}-{b}/output{-u,-z,}.wav``."""
+    ``{save_path}-{first_row + b}/output{-u,-z,}.wav``."""
     uout = np.concatenate(uout_chunks, axis=0).T  # (B, T)
     zout = np.concatenate(zout_chunks, axis=0).T
     nan_b = np.isnan(uout.sum(-1))
     for b in range(uout.shape[0]):
         if nan_b[b]:
             continue
-        d = f"{save_path}-{b}"
+        d = f"{save_path}-{first_row + b}"
         os.makedirs(d, exist_ok=True)
         wavio.write(f"{d}/output-u.wav", uout[b], sr, "PCM_16")
         wavio.write(f"{d}/output-z.wav", zout[b], sr, "PCM_16")
@@ -693,7 +756,7 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
              relative_order=4, surface_integral=False, randomize_each="batch",
              manufactured=False, rng=None, collect_state=True,
              postproc_keep=None, stats=None, kernel_gmres=None,
-             chunk_length=-1, save_path=None, skip_nan=True):
+             chunk_length=-1, save_path=None, skip_nan=True, rows=None):
     """Draw one batch and simulate it (reference simulate.py:121-217).
     ``chunk_length`` (seconds, -1 for the whole run), ``save_path`` and
     ``skip_nan`` are the float64 engine's chunking, its
@@ -701,7 +764,10 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
 
     Returns ``(results, (string, bow, hammer, [k, theta_t, lambda_c],
     consts), (bow_mask, hammer_mask, pluck_mask), device)``; ``results`` as
-    :func:`process` returns them.
+    :func:`process` returns them.  ``rows`` (a slice: a rank's share of
+    the batch in a multi-rank run, ``parallel/mesh.py::shard_rows``)
+    draws the whole batch from ``rng`` and simulates those rows alone; the
+    draws and results returned are theirs.
     """
     string, bow, hammer, bow_mask, hammer_mask, pluck_mask = draw_params(
         model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
@@ -725,7 +791,10 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
                       total_size, device, sr=sr,
                       postproc_keep=postproc_keep, stats=stats,
                       kernel_gmres=kernel_gmres, chunk_size=chunk_size,
-                      save_path=save_path, skip_nan=skip_nan)
+                      save_path=save_path, skip_nan=skip_nan, rows=rows)
+    if rows is not None:
+        string, bow, hammer, bow_mask, hammer_mask, pluck_mask = shard_draws(
+            rows, batch_size, string, bow, hammer, bow_mask, hammer_mask, pluck_mask)
     k = 1.0 / sr
     return (results, (string, bow, hammer, [k, theta_t, lambda_c], consts),
             (bow_mask, hammer_mask, pluck_mask), device)
@@ -863,6 +932,43 @@ def _dump_draw(path, b, why, string, bow, hammer, bow_mask, hammer_mask, consts)
     )
 
 
+def _merge_batch_stats(parts):
+    """One batch's ``skip_stats.json`` entry from every rank's, in rank
+    order: the counts summed, the rows and skips listed in rank order (with
+    their indices in the whole batch), the f64 stage's wall the slowest
+    rank's.  One rank's entry is returned as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    out = dict(parts[0])
+    for key in ("n", "nan_first_pass", "rescued_kernel_gmres", "rescued_f64",
+                "nan_final", "silent", "written"):
+        out[key] = sum(p[key] for p in parts)
+    for key in ("rescue_f64_rows", "skipped"):
+        items = [x for p in parts for x in p.get(key, [])]
+        if items:
+            out[key] = items
+    secs = [p["rescue_f64_s"] for p in parts if "rescue_f64_s" in p]
+    if secs:
+        out["rescue_f64_s"] = max(secs)
+    return out
+
+
+def _build_once(task):
+    """What every rank's run would build on first use into the checkout's
+    file caches, built by rank 0 while the others wait, then loaded by
+    them: the string kernel's library (single precision) and the modal
+    solution's root table (fused preprocessing)."""
+    with mesh.rank_zero_first():
+        if task.get("precision", "single") != "double":
+            from ..ops import build
+
+            build.load_kernel_library("string_step")
+        if task.get("fuse_preprocess", False):
+            from ..core import analytic
+
+            analytic.root_tables()
+
+
 def run(args, save_dir, model_name, n_samples):
     """Dataset-generation loop (reference simulate.py:219-456).
 
@@ -873,11 +979,24 @@ def run(args, save_dir, model_name, n_samples):
     state field, which never leaves the device; a state-free
     ``simulation.npz`` per item with ``task.save``.  Returns the per-batch
     simulate wall times.
+
+    In a multi-rank run (``parallel/mesh.py``; ``task.batch_size`` must
+    divide by the world size) each rank simulates and writes its rows of
+    every batch, under the indices the single-card run gives them; rank 0
+    alone writes the job's files (``_gen_meta.jsonl``, the timing log with
+    each batch's slowest rank, ``skip_stats.json`` summed over the ranks).
     """
     task = args.task
     sr = task.sr
     if task.plot or task.plot_state:
         _not_ported("plots (task.plot / task.plot_state)", "Queue 1 item 12")
+    # every rank's share of a batch, refused before anything runs when the
+    # batch does not divide
+    share = mesh.shard_rows(task.batch_size)
+    rank_rows = share if mesh.world_size() > 1 else None
+    lead = mesh.rank() == 0
+    if rank_rows is not None and not args.proc.cpu:
+        _build_once(task)
     kw = task_kwargs(task)
     theta_t = kw.pop("theta_t")
 
@@ -906,6 +1025,7 @@ def run(args, save_dir, model_name, n_samples):
         from . import process_training_data as ptd
 
         os.makedirs(fuse_dir, exist_ok=True)
+    if fuse and lead:
         # one provenance line per generation job: the same seed at another
         # batch size draws other strings
         with open(os.path.join(fuse_dir, "_gen_meta.jsonl"), "a") as f:
@@ -1035,13 +1155,9 @@ def run(args, save_dir, model_name, n_samples):
                 collect_state=collect_state,
                 postproc_keep=(keep_it, fuse_Nx) if fuse else None,
                 stats=stats, kernel_gmres=ladder, chunk_length=task.chunk_length,
-                save_path=save_path, skip_nan=task.skip_nan, **kw,
+                save_path=save_path, skip_nan=task.skip_nan, rows=rank_rows, **kw,
             )
             proc_time = time.time() - st
-            time_log.append(proc_time)
-            log_name = "gpu_time" if device.type == "cuda" else "cpu_time"
-            with open(f"{save_dir}/{log_name}.txt", "a") as f:
-                f.write(f"{dx}\t{proc_time:.2f}\n")
 
             uout, zout, state_u, state_z, v_r, F_H, u_H, sig0, sig1 = results
             string, bow, hammer, consts_list, sim_c = params_out
@@ -1058,7 +1174,7 @@ def run(args, save_dir, model_name, n_samples):
             # to a named cause
             first = state_is_nan if ladder is None else ladder["nan_first_pass"]
             batch_stat = {
-                "it": it, "n": int(task.batch_size),
+                "it": it, "n": len(bow_mask),
                 "nan_first_pass": int(first.sum()),
                 "rescued_kernel_gmres": int((first & ~state_is_nan).sum()),
                 "rescued_f64": 0,
@@ -1099,7 +1215,7 @@ def run(args, save_dir, model_name, n_samples):
                     state_is_nan[oki] = False
                     rescued_set.update(int(b) for b in oki)
                     batch_stat["rescued_f64"] = len(oki)
-                    batch_stat["rescue_f64_rows"] = [int(b) for b in oki]
+                    batch_stat["rescue_f64_rows"] = [share.start + int(b) for b in oki]
             if fused_out:
                 # the silence flags cross; the readouts only when an
                 # artifact holds them
@@ -1123,18 +1239,19 @@ def run(args, save_dir, model_name, n_samples):
             batch_stat["silent"] = int((is_silent & ~state_is_nan).sum())
             batch_stat["written"] = 0
             skipped_detail = []
-            for b in range(task.batch_size):
+            for b in range(len(bow_mask)):
+                gb = share.start + b  # the string's index in the whole batch
                 skipped_here = state_is_nan[b] or (task.skip_silence and is_silent[b])
                 if skipped_here:
                     skipped_detail.append({
-                        "b": int(b),
+                        "b": gb,
                         "why": "nan" if state_is_nan[b] else "silent",
                         "f0": round(float(string.f0[b, 2]), 2),
                         "alpha": round(float(string.alpha[b]), 3),
                         "p_a": round(float(string.p_a[b]), 4),
                     })
                 if task.get("dump_draws") or (skipped_here and task.get("dump_skipped")):
-                    _dump_draw(f"{save_dir}/draw-{dx}-{b}.npz", b,
+                    _dump_draw(f"{save_dir}/draw-{dx}-{gb}.npz", b,
                                skipped_detail[-1]["why"] if skipped_here else "kept",
                                string, bow, hammer, bow_mask, hammer_mask, sim_c)
                 if skipped_here:
@@ -1146,13 +1263,26 @@ def run(args, save_dir, model_name, n_samples):
                     if m
                 )
                 pending.append(pool.submit(
-                    save_item, b, f"{save_dir}/{dx}-{b}", excitation, uout,
+                    save_item, b, f"{save_dir}/{dx}-{gb}", excitation, uout,
                     zout, state_u, state_z, v_r, F_H, u_H, string, bow, hammer,
                     Nx_t, Nx_l, sig0, sig1, bow_mask, hammer_mask, pluck_mask,
                     consts_list, keep_it, rescued_set,
                 ))
             if skipped_detail:
                 batch_stat["skipped"] = skipped_detail
+            # the batch over every rank: its slowest rank's time, the
+            # counts summed
+            parts = mesh.all_gather_objects((proc_time, batch_stat))
+            proc_time = max(t for t, _ in parts)
+            batch_stat = _merge_batch_stats([b for _, b in parts])
+            time_log.append(proc_time)
+            del results, state_u, state_z  # the next batch may reuse the memory
+            if not lead:
+                continue
+            log_name = "gpu_time" if device.type == "cuda" else "cpu_time"
+            with open(f"{save_dir}/{log_name}.txt", "a") as f:
+                f.write(f"{dx}\t{proc_time:.2f}\n")
+            if "skipped" in batch_stat:
                 print(
                     f"[simulate] batch {it}: wrote {batch_stat['written']}"
                     f"/{task.batch_size} (nan={batch_stat['nan_final']}, "
@@ -1161,11 +1291,11 @@ def run(args, save_dir, model_name, n_samples):
             skip_stats.append(batch_stat)
             with open(f"{save_dir}/skip_stats.json", "w") as f:
                 json.dump(skip_stats, f, indent=1)
-            del results, state_u, state_z  # the next batch may reuse the memory
         for fut in pending:
             fut.result()
+    stats.merge(mesh.all_gather_objects(stats.snapshot()))
     timing = stats.save_timing()
-    if timing:
+    if timing and lead:
         # as the JAX package: the batches, the writer phases, and here the
         # run's device-to-host bytes, the bytes of the state fields that
         # stayed on the device, and per-batch width spreads

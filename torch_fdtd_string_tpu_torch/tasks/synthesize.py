@@ -19,6 +19,8 @@ import numpy as np
 import torch
 
 from ..models.losses import si_sdr, stft_mag
+from ..models.synthesizer import NoiseRows
+from ..parallel import mesh
 from ..utils import misc as ms
 
 
@@ -144,19 +146,34 @@ def compute_losses(outputs, registry, criteria):
     return total, loss_dict
 
 
-def make_train_step(model, optimizer, registry, criteria, inharmonic=True, needs_value=False):
+def make_train_step(model, optimizer, registry, criteria, inharmonic=True, needs_value=False,
+                    shard=None):
     """``train_step(state, prep) -> (state, loss_dict)``: the forward on
     the dataset's modes and the summed loss with autograd on, the backward,
     the optimizer's update (fed the loss when ``needs_value``: the plateau
     rule).  ``prep`` holds tensors on the model's device; the returned
-    losses stay there (detached), so a step waits for nothing."""
+    losses stay there (detached), so a step waits for nothing.
+
+    ``shard = (rows, B)``: a data-parallel step (``parallel/mesh.py``) on
+    this rank's ``rows`` (a slice) of a global batch of ``B``.  The noise
+    is the rows of the global batch's draw, the gradients and the losses
+    are averaged over the ranks (the registry's ``f0`` takes the global
+    batch's statistics: ``build_loss_registry(..., sharded=True)``), so
+    the step, and the loss the plateau rule reads, equal the single-card
+    step on the global batch."""
 
     def train_step(state, prep):
         optimizer.zero_grad(set_to_none=True)
-        outputs = forward_outputs(model, prep, state.generator, inharmonic)
+        noise = state.generator if shard is None else NoiseRows(state.generator, *shard)
+        outputs = forward_outputs(model, prep, noise, inharmonic)
         total, loss_dict = compute_losses(outputs, registry, criteria)
         total.backward()
         losses = {k: v.detach() for k, v in loss_dict.items()}
+        if shard is not None:
+            mesh.all_reduce_grads(model.parameters())
+            names = list(losses)
+            mean = mesh.all_reduce(torch.stack([losses[k] for k in names]), mean=True)
+            losses = dict(zip(names, mean.unbind()))
         optimizer.step(value=losses["loss"] if needs_value else None)
         state.step += 1
         return state, losses

@@ -19,8 +19,12 @@ code snapshot (``codes/torch_fdtd_string_tpu_torch``, written by
 Checkpoints are ``torch.save`` files under
 ``<save_dir>/string/ckpt/checkpoints``: ``step_<n>.pt`` holds the model's
 parameters and constants, ``optstate_<n>.pt`` beside it the optimizer's
-state.  The data-parallel mesh (ROADMAP Queue 1 item 11) and plots (item
-12) are not ported.
+state.  In a multi-rank run (``parallel/mesh.py``) ``train`` is data
+parallel, as the JAX package's mesh trains: every rank takes its rows of
+each global batch and the gradients are averaged before each step, so a
+step equals the single-card step; validation, the logs, ``profile.json``,
+the checkpoints and ``BEST`` are rank 0's alone.  Plots (ROADMAP Queue 1
+item 12) are not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import re
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -43,6 +48,7 @@ from ..data.dataset import DataLoader, Testset, Trainset, _collate
 from ..models import optim as optlib
 from ..models.losses import build_loss_registry
 from ..models.objective import build_metric_registry
+from ..parallel import mesh
 from ..utils.profiling import Timer
 from . import synthesize as S
 from .callbacks import save_results, save_test_results
@@ -228,7 +234,7 @@ def _build_host_cache(dataset, n_modes, block, sr, cache_path=None, drop=(), chu
             for p in parts)
         prep[k] = rows0[:1] if shared else np.concatenate([p[k] for p in parts])
     if cache_path:
-        tmp = cache_path + ".tmp.npz"
+        tmp = f"{cache_path}.tmp{os.getpid()}.npz"
         np.savez(tmp, **prep)
         os.replace(tmp, cache_path)
         print(f"[trainer] wrote host cache {cache_path}")
@@ -330,15 +336,64 @@ def _wmean(vals, prefix):
             for k in vals[0] if k != "_n"}
 
 
+def build_training(args, device, total_steps, dtype=None, sharded=None):
+    """What :func:`train` trains with, from the config: the model (its
+    weights drawn from ``proc.seed``, in ``dtype`` when given), the
+    optimizer and its schedule (over ``total_steps``), the loss registry,
+    the criteria and the train step.  ``sharded`` (a multi-rank run's
+    default) makes the step data parallel on this rank's rows of every
+    global batch of ``task.batch_size``, its ``f0`` loss on the global
+    batch's statistics.  Returns a namespace of these."""
+    task = args.task
+    sr = task.sr
+    trim = int(task.train_lens * sr) if task.train_lens else None
+    if sharded is None:
+        sharded = mesh.world_size() > 1
+    registry = build_loss_registry(sr, trim or sr)
+    criteria = list(task.loss_criteria)
+    gc = task.grad_clip
+    grad_clip = gc[0] if isinstance(gc, (list, tuple)) and gc and gc[0] else None
+    model = S.build_model(args, generator=torch.Generator().manual_seed(int(args.proc.seed)),
+                          device=device)
+    if dtype is not None:
+        model = model.to(dtype)
+    sched = args.get("scheduler")
+    optimizer, schedule, needs_value = optlib.build(
+        model.parameters(), args.optimizer._name_, dict(args.optimizer),
+        sched.get("_name_") if sched else None, dict(sched or {}), grad_clip,
+        total_steps=total_steps)
+    train_step = S.make_train_step(
+        model, optimizer,
+        build_loss_registry(sr, trim or sr, sharded=True) if sharded else registry,
+        criteria, model.inharmonic, needs_value,
+        shard=(mesh.shard_rows(task.batch_size), task.batch_size) if sharded else None)
+    return SimpleNamespace(model=model, optimizer=optimizer, schedule=schedule,
+                           registry=registry, criteria=criteria, train_step=train_step)
+
+
+def train_state(model, optimizer, seed, step, device):
+    """The ``TrainState`` of a run at ``step``: its noise generator seeded
+    from the run's seed and the step."""
+    return S.TrainState(model, optimizer, step,
+                        torch.Generator(device=device).manual_seed(_noise_seed(seed, step)))
+
+
 def train(args, save_dir):
     """The epoch loop (reference trainer.py + the LightningModule's
     training and validation steps).  The splits are cached on the device
-    when they fit ``CACHE_GB`` (in half precision when only that fits),
-    else every batch is streamed.  Returns the final ``TrainState``."""
+    when they fit ``CACHE_GB`` (in half precision when only that fits; per
+    rank, each of which caches the whole train split), else every batch is
+    streamed.  With several ranks each takes its rows (``shard_rows``) of
+    every global batch of ``task.batch_size``, which must divide by the
+    world size; rank 0 alone validates and writes.  Returns the final
+    ``TrainState``."""
     task = args.task
     if task.get("plot"):
         raise NotImplementedError(
             "task.plot is not ported yet (ROADMAP.md Queue 1 item 12); pass task.plot=false")
+    rows = mesh.shard_rows(task.batch_size)  # refused before anything runs
+    sharded = mesh.world_size() > 1
+    lead = mesh.rank() == 0
     device = select_device(args.proc.cpu)
     os.makedirs(save_dir, exist_ok=True)
     seed = int(args.proc.seed)
@@ -358,12 +413,6 @@ def train(args, save_dir):
     except FileNotFoundError:
         testset = test_loader = None
 
-    registry = build_loss_registry(sr, trim or sr)
-    criteria = list(task.loss_criteria)
-    grad_clip = None
-    gc = task.grad_clip
-    if isinstance(gc, (list, tuple)) and gc and gc[0]:
-        grad_clip = gc[0]
     # schedules decay over the real horizon (epochs x steps per epoch)
     steps_per_epoch = max(len(trainset) // task.batch_size, 1)
     total_steps = int(task.total_epoch) * steps_per_epoch
@@ -371,20 +420,21 @@ def train(args, save_dir):
     # the first batch, as the JAX package takes it: it advances the
     # loader's shuffle, and gives the item length
     first = next(iter(train_loader))
-    model = S.build_model(args, generator=torch.Generator().manual_seed(seed), device=device)
-    sched = args.get("scheduler")
-    optimizer, schedule, needs_value = optlib.build(
-        model.parameters(), args.optimizer._name_, dict(args.optimizer),
-        sched.get("_name_") if sched else None, dict(sched or {}), grad_clip,
-        total_steps=total_steps)
+    setup = build_training(args, device, total_steps)
+    model, optimizer, schedule = setup.model, setup.optimizer, setup.schedule
+    registry, criteria = setup.registry, setup.criteria
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[trainer] params: {n_params / 1e6:.2f}M; criteria: {criteria}; device {device}")
+    print(f"[trainer] params: {n_params / 1e6:.2f}M; criteria: {criteria}; device {device}"
+          + (f"; rank {mesh.rank()} of {mesh.world_size()}, rows {rows.start}:{rows.stop} "
+             f"of each batch of {task.batch_size}" if sharded else ""))
 
+    # every rank loads the same checkpoint; the broadcast keeps the ranks'
+    # weights one even where a build or a load could differ
     start_step = restore(save_dir, model, optimizer) if task.get("resume") else 0
-    state = S.TrainState(model, optimizer, start_step,
-                         torch.Generator(device=device).manual_seed(_noise_seed(seed, start_step)))
+    mesh.replicate(model)
+    state = train_state(model, optimizer, seed, start_step, device)
     inharmonic = model.inharmonic
-    train_step = S.make_train_step(model, optimizer, registry, criteria, inharmonic, needs_value)
+    train_step = setup.train_step
     eval_step = S.make_eval_step(model, registry, criteria, inharmonic)
     # the test split synthesizes from the estimator's modes (reference
     # validation_step feeds [.., None, None] for dataloader_idx != 0)
@@ -420,10 +470,13 @@ def train(args, save_dir):
                                                              f"_prep_{split}_{ctag}.npz"),
                                      f16=cache_f16)
 
-        gather, n_train = cache(trainset, "train")
-        vgather, n_valid = cache(validset, "valid")
-        if testset is not None:
-            tgather, n_test = cache(testset, "test")
+        # rank 0 writes the host cache, the other ranks load it
+        with mesh.rank_zero_first():
+            gather, n_train = cache(trainset, "train")
+        if lead:  # only rank 0 validates
+            vgather, n_valid = cache(validset, "valid")
+            if testset is not None:
+                tgather, n_test = cache(testset, "test")
         # a fresh generator each run: a resumed run's first epoch replays
         # epoch 0's order, as the JAX package's does (ROADMAP: known
         # reference faults)
@@ -448,10 +501,11 @@ def train(args, save_dir):
         if gather is not None:
             order = shuffle_rng.permutation(n_train)
             nb = n_train // task.batch_size  # drop_last
-            batch_iter = (gather(order[i * task.batch_size:(i + 1) * task.batch_size])
+            batch_iter = (gather(order[i * task.batch_size:(i + 1) * task.batch_size][rows])
                           for i in range(nb))
         else:
-            batch_iter = _prefetch((S.prepare_batch(b, n_modes, block, sr)
+            batch_iter = _prefetch((S.prepare_batch(mesh.shard_batch(b, task.batch_size),
+                                                    n_modes, block, sr)
                                     for b in train_loader), device)
         with prof.scope("train_epoch"):
             for prep in batch_iter:
@@ -462,12 +516,15 @@ def train(args, save_dir):
                     _sync(device)
                     print(f"[trainer] step {step} done @ {time.time() - t0:.1f}s "
                           f"(epoch {epoch})", flush=True)
-                if step % 50 == 0:
+                if step % 50 == 0 and lead:
                     rec = {"epoch": epoch, "step": step, "split": "train",
                            "lr": float(schedule(step))}
                     rec.update({f"train/{k}": float(v) for k, v in loss_dict.items()})
                     _log(save_dir, rec)
         if (epoch + 1) % max(task.valid_epoch, 1) != 0:
+            continue
+        if not lead:
+            mesh.barrier()  # rank 0 validates and writes
             continue
         model.eval()
         eval_seed = 1234 + epoch
@@ -511,8 +568,11 @@ def train(args, save_dir):
             # Lightning ModelCheckpoint monitor='valid/loss')
             with open(best_marker, "w") as f:
                 f.write(f"{step}\t{vloss}")
-    save_checkpoint(save_dir, model, step, optimizer)
-    prof.dump(os.path.join(save_dir, "profile.json"))
+        mesh.barrier()
+    if lead:
+        save_checkpoint(save_dir, model, step, optimizer)
+        prof.dump(os.path.join(save_dir, "profile.json"))
+    mesh.barrier()  # the last checkpoint is whole before any rank reads it
     return state
 
 
