@@ -97,7 +97,14 @@ Phases; any failure exits non-zero:
    the whole gradient), and where the float32 gradient's distance from
    float64 comes from (by criterion, ``modal_synth`` in float64, the FM
    frequencies rounded, l1's floor); the train step's ms (forward,
-   backward, optimizer), items/s and peak device memory.
+   backward, optimizer), items/s and peak device memory, with the parent
+   commit's forms of the four ops the step now runs in a fixed order
+   (``F.interpolate``, ``torch.cumsum``, ``F.pad(mode="reflect")``) and
+   with the new ones, in turns; the float32 step under
+   ``torch.use_deterministic_algorithms(True)`` in a child process
+   (``--deterministic-step``; nothing raised) for mlp and physics; two
+   float32 runs of two steps, bit for bit; ``proc.train`` for one epoch
+   on one card twice, its valid losses and checkpoint bit for bit.
 19. the classic pipeline and presets: (a) ``python -m
    torch_fdtd_string_tpu_torch.run experiment=process_training_data`` on
    phase 4's run (24 strings of 1 s, Nx=256) through ``run.main``: every
@@ -129,7 +136,14 @@ Phases; any failure exits non-zero:
    two cards (else a line says it was skipped).  Two ranks on one card
    measure the path, not scaling.
 
-Phases 13-20 run after phase 10 and before the ladder phases 11-12, whose
+21. the figures and a JAX run on the card's host: without matplotlib
+   ``experiment=linear-string task.plot=true`` raises the ImportError
+   naming ``task.plot=false`` before any work (with it, a run of 96 steps
+   draws the item's figures); without tensorstore, ``proc.test`` on a run
+   directory of the JAX package's layout (an orbax ``step_<n>/``) raises
+   the ImportError naming ``tools/convert_orbax.py``.
+
+Phases 13-21 run after phase 10 and before the ladder phases 11-12, whose
 length follows the time left.
 
 Phase 2 also prints ptxas's registers and spills of every instance.
@@ -1324,7 +1338,7 @@ def drive_time_experiment(dev, card):
     shutil.rmtree(out_dir, ignore_errors=True)
     sk.reset_launch_counts()
     t0 = time.perf_counter()
-    te.run_sweep(out_dir, with_engine=False, device=dev)
+    te.run_sweep(out_dir, with_engine=False, device=dev, plot=False)
     wall = time.perf_counter() - t0
     by_spec = dict(sk.string_chunked.launches_by_spec)
     with open(os.path.join(out_dir, "time_experiment.json")) as f:
@@ -1943,11 +1957,11 @@ def gradient_precision(model, args, prep, dev):
         # the phase sums the frequencies upsampled to the sample rate
         "phase_rad": float((drift.sum(1) * args.model.block_size).abs().max()),
     }
-def train_step_timing(args, prep, dev, card):
+def train_step_timing(args, prep, dev, card, forms="fixed-order forms"):
     """Phase 18: the train step at B=DMSP_TRAIN_BATCH on the card, CUDA
     events, mean of 5 after a warm-up, whole and split into the forward
     (with the losses), the backward and the optimizer; peak device
-    memory."""
+    memory.  ``forms`` names the ops in use (:func:`use_forms`)."""
     from torch_fdtd_string_tpu_torch.models import optim as optlib
     from torch_fdtd_string_tpu_torch.models.losses import build_loss_registry
     from torch_fdtd_string_tpu_torch.tasks import synthesize as S
@@ -1988,12 +2002,155 @@ def train_step_timing(args, prep, dev, card):
     split = {k: float(np.mean(v[1:])) for k, v in split.items()}  # the first warms up
     B = prep["gt"].shape[0]
     print(f"[18] train step at B={B}, Nt={prep['gt'].shape[-1]} (physics, synth-dmsp's "
-          f"widths, radam): {whole:.2f} ms (CUDA events, mean of 5) = {B / whole * 1e3:.1f} "
+          f"widths, radam; {forms}): {whole:.2f} ms (CUDA events, mean of 5) = {B / whole * 1e3:.1f} "
           f"train items/s; forward with the losses {split['forward']:.2f} ms "
           f"(alone {fwd:.2f}), backward {split['backward']:.2f} ms, optimizer "
           f"{split['optimizer']:.2f} ms (mean of 5 after one); peak device memory {peak:.2f} "
           f"GiB [{card}]")
     return whole, split, peak
+
+
+def parent_forms():
+    """The four ops of the train step as the parent commit wrote them, before
+    their fixed-order forms (``upsample`` by ``F.interpolate``, the running
+    sums by ``torch.cumsum``, the STFT's reflect padding by ``F.pad``), to
+    be swapped in by :func:`use_forms` for the before-and-after timing.
+    The physics estimator's ``take_along`` has no backward in the step
+    (the estimator has no learned parameters) and stays."""
+    import torch.nn.functional as F
+
+    def interpolate(signal, factor):
+        return F.interpolate(signal.transpose(1, 2), scale_factor=factor, mode="linear",
+                             align_corners=False).transpose(1, 2)
+
+    def cumsum(x, dim=-2, block=None):
+        return torch.cumsum(x, dim)
+
+    def reflect(x, pad):
+        return F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+
+    return interpolate, cumsum, cumsum, reflect
+
+
+def use_forms(forms=None):
+    """Swap ``forms`` (:func:`parent_forms`) into the port's modules;
+    returns the forms they held.  None leaves them as they are."""
+    from torch_fdtd_string_tpu_torch.models import blocks, losses, synthesizer
+    from torch_fdtd_string_tpu_torch.ops import modal
+
+    held = (synthesizer.upsample, modal.running_sum, blocks.running_sum, losses.reflect_pad)
+    if forms is not None:
+        (synthesizer.upsample, modal.running_sum, blocks.running_sum,
+         losses.reflect_pad) = forms
+    return held
+
+
+def deterministic_step(job):
+    """``--deterministic-step``: one float32 train step (``trainer.
+    build_training``) on the saved batch under
+    ``torch.use_deterministic_algorithms(True)``, which raises at any op
+    with no deterministic CUDA form and warns at none."""
+    import warnings
+
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    torch.use_deterministic_algorithms(True)
+    dev = torch.device("cuda")
+    with np.load(job["prep"]) as z:
+        prep = S.to_device({k: z[k] for k in z.files}, dev)
+    setup = trainer.build_training(compose(port_run.CONFIG_DIR, job["over"]), dev, 100,
+                                   sharded=False)
+    state = trainer.train_state(setup.model, setup.optimizer, 0, 0, dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        losses = setup.train_step(state, prep)[1]
+        torch.cuda.synchronize()
+    alerts = [str(w.message) for w in caught if "determinis" in str(w.message)]
+    if alerts or not all(np.isfinite(float(v)) for v in losses.values()):
+        raise AssertionError(f"deterministic step: {alerts}, losses {losses}")
+    print(json.dumps({"loss": float(losses["loss"])}))
+    return 0
+
+
+def check_determinism(args, over, prep, dev, card):
+    """Phase 18: the train step at the main path's batch (a) under
+    ``torch.use_deterministic_algorithms(True)`` in a child process (cuBLAS
+    asks for ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` there), nothing raised,
+    for both estimators; (b) two float32 runs of two steps each, from the
+    same seed on the same two batches and noise generator: every loss and
+    every parameter equal bit for bit."""
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.tasks import synthesize as S
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    path = os.path.join(ROOT, "results", "chip_smoke_18_batch.npz")
+    np.savez(path, **prep)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    batches = [S.to_device(prep, dev), S.to_device(
+        {k: v[::-1].copy() for k, v in prep.items()}, dev)]
+    for est in ("physics", "mlp"):
+        est_over = over + [f"model.mode_estimator={est}"]
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--deterministic-step", json.dumps(
+                                  {"prep": path, "over": est_over})],
+                             cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f"[18] {est}: the step under deterministic algorithms "
+                                 f"failed:\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+        child_loss = json.loads(res.stdout.strip().splitlines()[-1])["loss"]
+        runs = []
+        for _ in range(2):
+            setup = trainer.build_training(compose(port_run.CONFIG_DIR, est_over), dev, 100,
+                                           sharded=False)
+            state = trainer.train_state(setup.model, setup.optimizer, 0, 0, dev)
+            losses = [setup.train_step(state, b)[1] for b in batches]
+            runs.append(([{k: float(v) for k, v in ld.items()} for ld in losses],
+                         {k: q.detach().clone() for k, q in setup.model.named_parameters()}))
+        (l1, p1), (l2, p2) = runs
+        same = l1 == l2 and all(torch.equal(p1[k], p2[k]) for k in p1)
+        diff = max(float((p1[k] - p2[k]).abs().max()) for k in p1)
+        print(f"[18] {est}: the float32 step at B={prep['gt'].shape[0]} under "
+              f"torch.use_deterministic_algorithms(True) (child process, "
+              f"CUBLAS_WORKSPACE_CONFIG=:4096:8): nothing raised or warned, loss "
+              f"{child_loss:.6f}, {time.perf_counter() - t0:.2f} s with start-up; two runs "
+              f"of two float32 steps (same seed, batches, noise): losses and all "
+              f"{len(p1)} parameters bit for bit {same} (largest difference {diff:.3e}); "
+              f"(the child's first loss, under its own cuBLAS workspace, "
+              f"{'equals' if child_loss == l1[0]['loss'] else 'differs from'} theirs) [{card}]")
+        if not same:
+            raise AssertionError(f"[18] {est}: two float32 runs differ ({diff:.3e})")
+
+
+def check_repeated_epoch(over, card):
+    """Phase 18: ``proc.train`` for one epoch on one card twice through
+    ``run.main`` (``proc.test=false``): the valid records' losses and the
+    checkpoint's parameters equal bit for bit."""
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+
+    epoch = over + ["task.total_epoch=1", "proc.test=false"]
+    out = []
+    for n in (1, 2):
+        run_dir = os.path.join(ROOT, "results", f"chip_smoke_18_epoch{n}")
+        shutil.rmtree(run_dir, ignore_errors=True)
+        wall, recs = train_run(epoch, run_dir)
+        valid = [r for r in recs if r.get("split") == "valid"]
+        ckpt = trainer.latest_checkpoint(run_dir)
+        params = torch.load(ckpt, map_location="cpu", weights_only=True)["params"]
+        out.append((wall, valid, params))
+    (w1, v1, p1), (w2, v2, p2) = out
+    keys = sorted(k for k in v1[0] if k.startswith("valid/"))
+    same = (len(v1) == len(v2) == 1 and all(v1[0][k] == v2[0][k] for k in keys)
+            and all(torch.equal(p1[k], p2[k]) for k in p1))
+    print(f"[18] proc.train one epoch on one card, twice: valid/loss {v1[0]['valid/loss']!r} "
+          f"and {v2[0]['valid/loss']!r}; every valid loss and all {len(p1)} checkpoint "
+          f"tensors bit for bit {same}; walls {w1:.2f} / {w2:.2f} s [{card}]")
+    if not same:
+        raise AssertionError(f"[18] the one-card epoch does not repeat: {v1} {v2}")
 
 
 def drive_dmsp_train(dev, card):
@@ -2083,7 +2240,20 @@ def drive_dmsp_train(dev, card):
     for est in ("mlp", "physics"):
         est_args = compose(port_run.CONFIG_DIR, over + [f"model.mode_estimator={est}"])
         train_step_card_vs_cpu(est, est_args, prep, dev, card)
-    whole, split, peak = train_step_timing(args, prep, dev, card)
+    check_determinism(args, over, prep, dev, card)
+    check_repeated_epoch(over, card)
+    # the step before and after the fixed-order forms, in turns on one card
+    times = {}
+    for tag in ("parent forms", "fixed-order forms", "fixed-order forms", "parent forms"):
+        held = use_forms(parent_forms() if tag == "parent forms" else None)
+        try:
+            whole, split, peak = train_step_timing(args, prep, dev, card, tag)
+        finally:
+            use_forms(held)
+        times.setdefault(tag, []).append(whole)
+    print("[18] train step at B=128, ms (CUDA events, mean of 5; in turns parent, fixed, "
+          "fixed, parent): " + "; ".join(f"{k} {', '.join(f'{t:.2f}' for t in v)}"
+                                        for k, v in times.items()) + f" [{card}]")
     print(f"[18] paths: proc.train (synth-dmsp, full width, physics, batch "
           f"{DMSP_TRAIN_BATCH}) {3 * spe} steps over two runs, resumed once; the training "
           f"path reaches no pallas_call, so no kernel of its own")
@@ -2250,7 +2420,7 @@ def drive_presets(dev, card):
     shutil.rmtree(root, ignore_errors=True)
     synthetic_recording(os.path.join(root, "rec"))
     t0 = time.perf_counter()
-    f0, force, strikes = preprocess_data.process(root, "rec")
+    f0, force, strikes = preprocess_data.process(root, "rec", plot=False)
     pre_s = time.perf_counter() - t0
     print(f"[19] preprocess_data: {pre_s:.2f} s for 1 s of audio; f0 {f0.min():.2f}-"
           f"{f0.max():.2f} Hz, bow force on {(force > 0).mean():.3f} of the samples, "
@@ -2366,13 +2536,15 @@ def drive_phase19(classic, fused_prep, dev, card):
 # ranks against one card, float32: the first step's losses within
 # SHARD_LOSS32 (the same batch, weights and noise; read 1.1e-7), the
 # checkpoint's per-tensor distance, relative to each tensor's scale,
-# within SHARD_TRAIN32 = (median, largest).  Read: median 2.3e-6, largest
-# 8.9e-2 on a zero-initialised bias whose scale is its four updates; the
-# losses part at the fourth step (3e-4), as the float32 gradient's
-# sensitivity to summation order (PERF.md) compounds, and the one-card
-# run's own valid/loss moved 1.4e-4 between two card runs
+# within SHARD_TRAIN32 = (median, largest).  Both runs now repeat bit for
+# bit (phase 18), so what parts them is the all-reduce's summation order
+# alone, compounded by the float32 gradient's sensitivity to it (PERF.md);
+# the losses part at the fourth step (1.7e-4).  Read with the fixed-order
+# ops: median 1.805e-6, largest 7.335e-2 on a zero-initialised bias whose
+# scale is its four updates (before them, runs that did not repeat: 2.3e-6
+# and 8.9e-2, bounds 1e-4 and 0.5); bounds about twice the reading
 SHARD_STEPS, SHARD_PARAM64, SHARD_LOSS32 = 2, 1e-9, 1e-5
-SHARD_TRAIN32 = (1e-4, 0.5)
+SHARD_TRAIN32 = (4e-6, 0.15)
 SHARD_TIMEOUT_S = 300
 
 
@@ -2874,6 +3046,60 @@ def drive_phase20(fused_dir, classic_dir, train_over, dev, card):
     return launches
 
 
+def drive_phase21(dmsp_over, card):
+    """Phase 21: the figures and a JAX-trained run on the card's host.
+    Without matplotlib ``experiment=linear-string task.plot=true`` raises
+    the ImportError naming ``task.plot=false`` before any work; with it a
+    run of a few steps draws the item's figures.  Without tensorstore,
+    ``proc.test`` on a run directory in the JAX package's layout (an orbax
+    ``step_<n>/``) raises the ImportError naming
+    ``tools/convert_orbax.py``."""
+    import importlib.util
+
+    from torch_fdtd_string_tpu_torch import run as port_run
+
+    root = os.path.join(ROOT, "results", "chip_smoke_21")
+    shutil.rmtree(root, ignore_errors=True)
+    over = ["experiment=linear-string", "task.precision=single", "task.length=0.002",
+            f"task.root_dir={root}", "task.save_name=plot"]
+    if importlib.util.find_spec("matplotlib") is None:
+        try:
+            port_run.main(over)
+        except ImportError as err:
+            if "task.plot=false" not in str(err) or glob.glob(os.path.join(root, "plot", "*-*")):
+                raise AssertionError(f"[21] task.plot=true: {err!r}") from err
+            print(f"[21] no matplotlib on this host: task.plot=true raised before any work: "
+                  f"{err} [{card}]")
+        else:
+            raise AssertionError("[21] task.plot=true ran on a host without matplotlib")
+    else:
+        port_run.main(over)
+        drawn = sorted(os.path.basename(p) for p in glob.glob(
+            os.path.join(root, "plot", "0-0", "*.p*")))
+        want = {"spec.pdf", "f0.pdf", "phs.pdf", "string.png", "hammer.png"}
+        if not want <= set(drawn):
+            raise AssertionError(f"[21] linear-string drew {drawn}")
+        print(f"[21] matplotlib on this host: linear-string with its figures drew {drawn} "
+              f"[{card}]")
+    step_dir = os.path.join(root, "jax_run", "string", "ckpt", "checkpoints", "step_3")
+    os.makedirs(step_dir)
+    with open(os.path.join(step_dir, "_METADATA"), "w") as f:
+        json.dump({"tree_metadata": {}, "use_zarr3": False}, f)
+    if importlib.util.find_spec("tensorstore") is not None:
+        print(f"[21] tensorstore on this host: a JAX run is served as on the CPU host [{card}]")
+        return
+    try:
+        port_run.main(dmsp_over + [f"task.ckpt_dir={os.path.join(root, 'jax_run')}",
+                                   f"task.root_dir={root}", "task.save_name=jax_test"])
+    except ImportError as err:
+        if "tools/convert_orbax.py" not in str(err):
+            raise AssertionError(f"[21] a JAX run: {err!r}") from err
+        print(f"[21] proc.test on a JAX run directory (orbax step_3/), no tensorstore on this "
+              f"host: {err} [{card}]")
+    else:
+        raise AssertionError("[21] a JAX run was scored without tensorstore")
+
+
 def add_gmres(acc, by_spec):
     for spec, n in by_spec.items():
         if spec.endswith("-gmres"):
@@ -3026,6 +3252,8 @@ def main():
         return 1
     if sys.argv[1:2] == ["--rank"]:
         return rank_worker(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--deterministic-step"]:
+        return deterministic_step(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-one"]:
         ab_times(os.path.abspath(sys.argv[2]), sys.argv[3])
         return 0
@@ -3310,6 +3538,10 @@ def main():
     launches["bucketed"] += drive_phase20(head["save_dir"], pluck["save_dir"], train["over"],
                                           dev, card)
     print(f"[20] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 21. the figures and a JAX run on the card's host ----------------------
+    drive_phase21(train["over"] + ["proc.train=false"], card)
+    print(f"[21] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 11-12. the rescue ladder ----------------------------------------------
     left = max(RUN_TARGET_S - (time.perf_counter() - t_start) - LADDER12_S, 30.0)

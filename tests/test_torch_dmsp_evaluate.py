@@ -80,13 +80,14 @@ def _table(path):
     return header, [r[0] for r in rows], np.array([[float(v) for v in r[1:]] for r in rows])
 
 
-def _variables(estimator):
+def _variables(estimator, seed=1):
     """Perturbed flax variables of the small synth-dmsp model."""
     jargs = jcompose(CONFIG_DIR, TEST + [f"model.mode_estimator={estimator}"])
     jm = jsynth.build_model(jargs)
     prep = synth_inputs(B=2, Nt=2400, n_modes=SMALL["n_modes"], block=SMALL["block_size"])
     args = [jnp.asarray(prep[k]) for k in ("xg", "tg", "ka", "al", "t60", "f_k", "c_k")]
-    return perturb(flax_init(jm, args, jnp.asarray(prep["f_0"]), jnp.asarray(prep["u_0"])), 1)
+    return perturb(flax_init(jm, args, jnp.asarray(prep["f_0"]), jnp.asarray(prep["u_0"])),
+                   seed)
 
 
 @pytest.mark.parametrize("estimator", ["mlp", "physics"])
@@ -147,6 +148,34 @@ def test_proc_test_matches_jax_evaluate(corpus, tmp_path, monkeypatch, estimator
     for key in ("test/modeamps", "test/modefreq"):
         assert recs[-1][key] == pytest.approx(jrecs[-1][key], rel=1e-4, abs=1e-8)
     assert recs[-1]["test/sisdr"] == pytest.approx(jrecs[-1]["test/sisdr"], abs=1e-2)
+
+
+def test_proc_test_serves_a_jax_run(corpus, tmp_path, monkeypatch):
+    """``proc.test task.ckpt_dir=<a JAX run>``: the port scores the run the
+    JAX package's ``save_checkpoint`` wrote (orbax ``step_<n>/``; its
+    ``codes/`` snapshot is the JAX package's, which the port never runs),
+    by its BEST step, equal to the port's scoring of the same weights
+    from a ``step_<n>.pt`` (which test_proc_test_matches_jax_evaluate
+    holds to JAX ``trainer.evaluate``)."""
+    fix_noise(monkeypatch)
+    over = TEST + [f"task.load_dir={corpus}", "model.mode_estimator=mlp"]
+    variables = _variables("mlp")
+    jax_run = str(tmp_path / "jax")
+    for step, v in ((2, variables), (5, _variables("mlp", seed=2))):
+        jtrainer.save_checkpoint(jax_run, jsynth.TrainState(
+            v["params"], {"constants": v["constants"]}, None, 0, None), step, with_opt=False)
+    with open(os.path.join(jtrainer._ckpt_dir(jax_run), "BEST"), "w") as f:
+        f.write("2\t0.5")
+    os.makedirs(os.path.join(jax_run, "codes", "torch_fdtd_string_tpu"))
+    ttrainer.save_checkpoint(str(tmp_path / "pt"), load_jax_variables(
+        tsynth.build_model(tcompose(CONFIG_DIR, over)), variables), 2)
+    tables = {}
+    for name, ckpt in (("from_jax", jax_run), ("from_pt", str(tmp_path / "pt"))):
+        trun.main(over + [f"task.ckpt_dir={ckpt}", f"task.root_dir={tmp_path}",
+                          f"task.save_name={name}"])
+        tables[name] = _table(os.path.join(tmp_path, name, "score", "output.txt"))
+    (h1, ids1, rows1), (h2, ids2, rows2) = tables.values()
+    assert h1 == h2 and ids1 == ids2 and len(ids1) == 13 and np.array_equal(rows1, rows2)
 
 
 def test_dataset_and_loader_match_jax(corpus):
@@ -269,10 +298,13 @@ def test_convert_is_strict():
 
 @pytest.mark.parametrize("override", [
     "task.plot=true", "task.plot_test_video=true",
-    # training is ported; its plots are not
     pytest.param("proc.train=true task.plot=true", id="proc.train=true")])
-def test_unported_options_raise(override, tmp_path):
-    with pytest.raises(NotImplementedError):
+def test_unported_options_raise(override, tmp_path, monkeypatch):
+    """The figure options need matplotlib: on a host without it each
+    raises an ImportError naming the option, before any work."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    option = override.split()[-1].split("=")[0]
+    with pytest.raises(ImportError, match=f"pass {option}=false"):
         trun.main(TEST + override.split() + [f"task.root_dir={tmp_path}", "task.save_name=x",
                                              f"task.load_dir={tmp_path}"])
 

@@ -9,6 +9,7 @@ tables compare on the same wavs and parameters.  Tables are equal at 1e-6
 
 import glob
 import os
+import sys
 import shutil
 
 import numpy as np
@@ -129,12 +130,14 @@ def test_summarize_mixed_headers(tmp_path, capsys):
     assert tsum.summarize(str(tmp_path / "empty")) is None
 
 
-def test_plots_raise(copies):
-    """The figures are not ported: ``plot=True`` raises and writes nothing."""
+def test_plots_raise(copies, monkeypatch):
+    """On a host without matplotlib ``plot=True`` raises an ImportError
+    naming ``task.plot=false`` and writes nothing."""
     _, td = copies
-    with pytest.raises(NotImplementedError, match="item 12"):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="task.plot=false"):
         teval.evaluate(td, plot=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ImportError, match="task.plot=false"):
         teval.evaluate_dir(os.path.join(td, "0-0"), plot=True)
     assert not glob.glob(os.path.join(td, "*", "string_params.txt"))
     assert not os.path.exists(os.path.join(td, "evaluation.txt"))
@@ -153,5 +156,6 @@ def test_run_evaluate_and_summarize(copies, monkeypatch):
     jsum.summarize(jd)
     for name in ("evaluation.txt", "summary.txt"):
         _assert_tables_equal(os.path.join(jd, name), os.path.join(td, name))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="task.plot=false"):
         trun.main(["experiment=evaluate", "task.plot=true", f"task.load_dir={td}"])

@@ -10,6 +10,7 @@ runs as configured (float64 on the CPU) with its plots off.
 """
 
 import os
+import sys
 import shutil
 
 import numpy as np
@@ -79,10 +80,13 @@ def test_preprocess_data_matches_jax(tmp_path):
     assert int(hammer.sum()) == 2
 
 
-def test_preprocess_data_plot_raises(tmp_path):
+def test_preprocess_data_plot_raises(tmp_path, monkeypatch):
+    """Without matplotlib ``plot=True`` (the default) raises before any
+    work."""
     synthetic_recording(str(tmp_path / "rec"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpre.process(str(tmp_path), "rec", plot=True)
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError, match="plot=false"):
+        tpre.process(str(tmp_path), "rec")
     assert not any(n.endswith(".npy") for n in os.listdir(tmp_path / "rec"))
 
 

@@ -144,7 +144,11 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("override,what", [
     ("task.plot=true", "plots"),
 ])
-def test_unported_run_options_raise(tmp_path, override, what):
+def test_unported_run_options_raise(tmp_path, override, what, monkeypatch):
+    """The figures need matplotlib: without it ``task.plot=true`` raises an
+    ImportError naming ``task.plot=false`` before any work."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     args = tcompose(CONFIG_DIR, BASE + [override])
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ImportError, match="task.plot=false"):
         tsim.run(args, str(tmp_path), "pluck", 1)
+    assert not os.listdir(tmp_path)

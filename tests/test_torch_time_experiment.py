@@ -81,9 +81,11 @@ def test_pluck_chunked_matches_jax():
 def test_run_sweep_writes_every_point(tmp_path):
     """The sweep at a tiny size on the CPU: every point of both curves, in
     the JAX layout, finite and positive; the engine only where the JAX
-    sweep times it (here at the batch size, not past its own length)."""
+    sweep times it (here at the batch size, not past its own length).  The
+    figure is tests/test_torch_plot.py's (a log axis over one point takes
+    matplotlib half a minute)."""
     res = te.run_sweep(str(tmp_path), batches=(2,), lengths=(0.011,), device="cpu",
-                       batch_length=0.011, engine_length=0.002, reps=1)
+                       batch_length=0.011, engine_length=0.002, reps=1, plot=False)
     data = _strict_json(tmp_path / "time_experiment.json")
     assert data == json.loads(json.dumps(res))
     assert data["backend"] == "cpu" and sorted(data) == ["backend", "batch", "device",

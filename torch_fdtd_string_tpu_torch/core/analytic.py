@@ -3,8 +3,10 @@
 Port of the parts of ``torch_fdtd_string_tpu/core/analytic.py`` that the
 fused dataset path and the verification runs use: the mode frequencies and
 shapes that label each training item (reference
-``src/model/analytic.py:143-388``), and the manufactured solution the MMS
-runs are held to.  The roots of
+``src/model/analytic.py:143-388``), the manufactured solution the MMS
+runs are held to, and the lossless non-stiff string's sine series and its
+(u, z) pair (reference analytic.py:38-76), the analytic fields of the
+figures.  The roots of
 the transcendental mode equations are found on the host by
 Levenberg-Marquardt, seeded from a kappa-interpolated root table; the
 coefficient fit is a direct ``lstsq`` solve.
@@ -39,6 +41,29 @@ def manufactured_solution(Nt, Nx, gamma, sig0, p_a, sr):
     x = np.linspace(-0.5, 0.5, Nx)
     t = np.arange(Nt)[:, None] / sr
     return p_a * np.cos(np.pi * x)[None, :] ** 2 * np.cos(gamma * t) * np.exp(-sig0 * t)
+
+
+def lossless_nonstiff_string(u0, f0, Nt, Nx, sr, L=1.0):
+    """The ideal string's sine-series (d'Alembert) solution (reference
+    analytic.py:38-54): ``u0`` (Nx,) the initial displacement on x in
+    [0, L], ``f0`` a scalar or (Nt,); returns (Nt, Nx)."""
+    u0 = np.asarray(u0, np.float64).reshape(-1)
+    x = np.linspace(0, L, Nx)
+    t = np.arange(Nt)[:, None] / sr
+    c = 2 * L * np.reshape(np.asarray(f0, np.float64), (-1, 1))  # (Nt|1, 1)
+    n = np.arange(1, Nx + 1)[None, :]
+    sin_nx = np.sin(n[:, :, None] * np.pi * x[None, None, :] / L)  # (1, modes, Nx)
+    b = 2 / L * (u0[None, :] * np.sin(n.T * np.pi * x[None, :] / L)).mean(axis=1)
+    cos_t = np.cos(n * np.pi * c * t / L)  # (Nt, modes)
+    return (cos_t * b[None, :]) @ sin_nx[0]
+
+
+def nonlinear_wave_solution(u0, z0, f0, alpha, Nt, Nx, sr, L=1.0):
+    """The (u, z) pair of sine-series solutions at wave speeds c and
+    alpha c (reference analytic.py:56-76)."""
+    u = lossless_nonstiff_string(u0, f0, Nt, Nx, sr, L)
+    z = lossless_nonstiff_string(z0, np.asarray(f0) * alpha, Nt, Nx, sr, L)
+    return u, z
 
 
 def t60_to_sigma_scalar(T60, gamma, K):

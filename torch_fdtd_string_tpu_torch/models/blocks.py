@@ -22,6 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.modal import running_sum
+
 # the deviation of a unit normal truncated to [-2, 2], by which flax's
 # variance_scaling divides the deviation it asks for
 _TRUNC_STD = 0.87962566103423978
@@ -201,7 +203,7 @@ class ModeEstimator(nn.Module):
         mode_amps = torch.tanh(1e-3 * self.amp_out(self.amp_mlp(con)))
         if self.inharmonic:
             f = torch.sigmoid(self.freq_out(self.freq_mlp(con)))
-            mode_freq = torch.cumsum(0.3 * f, dim=-1)
+            mode_freq = running_sum(0.3 * f, dim=-1)  # cumsum in a fixed order
         else:
             ints = torch.arange(1, self.n_modes + 1, dtype=u_0.dtype, device=u_0.device)
             mode_freq = gamma / self.sr * (2 * math.pi) * ints

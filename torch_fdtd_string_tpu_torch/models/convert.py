@@ -10,9 +10,17 @@ leaf (``e``, ``gain_in``, ``gain_out``, ``noise_gate``, ``noise_env_gain``,
 ``N``) keeps its shape.  Every flax leaf is consumed exactly once: a leaf
 the port has no place for, or a port entry no leaf fills, raises
 ``ValueError``.
+
+:func:`load_orbax` reads those two dicts from a checkpoint directory the
+JAX package's ``tasks/trainer.py::save_checkpoint`` writes with orbax
+(``step_<n>/``: ``_METADATA`` and an OCDBT key-value store of zarr
+arrays), through tensorstore alone; it imports neither jax nor orbax.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 import torch
@@ -147,3 +155,42 @@ def load_jax_variables(module, variables):
     """Load the JAX package's variables into ``module``, strictly."""
     module.load_state_dict(state_dict_from_jax(module, variables), strict=True)
     return module
+
+
+CONVERT_TOOL = "python -m torch_fdtd_string_tpu_torch.tools.convert_orbax"
+
+
+def load_orbax(step_dir):
+    """The flax variables (``{"params": ..., "constants": ...}``, numpy) of
+    the JAX package's orbax checkpoint ``step_dir``, which holds the
+    ``params`` tree and, under ``constants``, every other collection (JAX
+    ``TrainState.constants``).  The tree's keys come from
+    ``_METADATA``'s ``tree_metadata``; each array is read from the
+    checkpoint's OCDBT store by tensorstore, as ``zarr3`` arrays when
+    ``use_zarr3`` is set, else ``zarr``.  Without tensorstore it raises an
+    ``ImportError`` naming the tool that converts such a run on a host that
+    has it."""
+    try:
+        import tensorstore as ts
+    except ImportError as err:
+        raise ImportError(
+            f"{step_dir} is a JAX (orbax) checkpoint, and reading it needs tensorstore, "
+            f"which this host lacks; convert the run on a host that has it with "
+            f"`{CONVERT_TOOL} <jax run dir> <out run dir> [overrides]` "
+            "(tools/convert_orbax.py) and serve the converted run") from err
+    with open(os.path.join(step_dir, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt", True):
+        raise ValueError(f"{step_dir}: only OCDBT checkpoints are read (the JAX package's)")
+    array_format = "zarr3" if meta.get("use_zarr3") else "zarr"
+    kvstore = {"driver": "ocdbt", "base": "file://" + os.path.abspath(step_dir)}
+    tree = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [str(k["key"]) for k in entry["key_metadata"]]
+        spec = {"driver": array_format, "kvstore": kvstore, "path": ".".join(keys)}
+        arr = np.asarray(ts.open(spec, open=True).result().read().result())
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+    return {"params": tree.get("params", {}), **tree.get("constants", {})}

@@ -12,7 +12,6 @@ import math
 from functools import partial
 
 import torch
-import torch.nn.functional as F
 
 from ..parallel import mesh
 from ..utils.audio import mel_filterbank
@@ -22,13 +21,28 @@ def _l1(a, b):
     return torch.mean(torch.abs(a - b))
 
 
+def reflect_pad(x, pad):
+    """``x`` padded by ``pad`` samples at each end of its last axis, each
+    pad the mirror image of the samples next to the edge (the edge sample
+    not repeated), as ``F.pad(mode="reflect")``.  Written as flips and a
+    concatenation, whose backward is a plain sum: the CUDA backward of
+    ``F.pad(mode="reflect")`` accumulates with atomics, in no fixed
+    order."""
+    left = torch.flip(x[..., 1:pad + 1], dims=(-1,))
+    right = torch.flip(x[..., -pad - 1:-1], dims=(-1,))
+    return torch.cat([left, x, right], dim=-1)
+
+
 def stft_mag(x, n_fft, hop):
     """Magnitude STFT with reflect centre padding by ``n_fft // 2`` and a
     periodic Hann window.  x: (..., n) -> (..., frames, n_fft//2+1)."""
     pad = n_fft // 2
     lead = x.shape[:-1]
-    xp = F.pad(x.reshape(-1, 1, x.shape[-1]), (pad, pad), mode="reflect")
-    frames = xp[:, 0].unfold(-1, n_fft, hop)  # (N, frames, n_fft)
+    if x.shape[-1] <= pad:
+        raise ValueError(f"reflect padding of {pad} needs more than {pad} samples, "
+                         f"got {x.shape[-1]}")
+    xp = reflect_pad(x.reshape(-1, x.shape[-1]), pad)
+    frames = xp.unfold(-1, n_fft, hop)  # (N, frames, n_fft)
     win = torch.hann_window(n_fft, periodic=True, dtype=x.dtype, device=x.device)
     mag = torch.abs(torch.fft.rfft(frames * win, dim=-1))
     return mag.reshape(lead + mag.shape[-2:])

@@ -124,6 +124,15 @@ def _sigma_scalar(t60, gamma, K):
     return 6.0 * math.log(10.0) * sig0 / (zeta1 - zeta2)
 
 
+def take_along(values, order):
+    """``torch.gather(values, -1, order)`` for (b, n) ``values`` and (b, k)
+    ``order``, as a one-hot selection (b, k, n) summed over ``n``: its
+    backward is a plain sum, where the CUDA backward of ``torch.gather``
+    scatters with atomics, in no fixed order."""
+    pick = order[..., None] == torch.arange(values.shape[-1], device=order.device)
+    return torch.where(pick, values[:, None], 0.0).sum(-1)
+
+
 class PhysicsModeEstimator(nn.Module):
     """Drop-in ModeEstimator with the dispersion physics embedded.
 
@@ -207,6 +216,6 @@ class PhysicsModeEstimator(nn.Module):
         om_all = om.reshape(b, -1)
         amp_all = amp.reshape(b, -1)
         order = torch.argsort(om_all, dim=-1, stable=True)[:, : self.n_modes]
-        mode_freq = torch.gather(om_all, -1, order)[:, None]
-        mode_amps = torch.gather(amp_all, -1, order)[:, None]
+        mode_freq = take_along(om_all, order)[:, None]
+        mode_amps = take_along(amp_all, order)[:, None]
         return mode_amps.to(u_0.dtype), mode_freq.to(u_0.dtype)

@@ -247,8 +247,9 @@ class Synthesizer(nn.Module):
 
         Nt, Nf = times.shape[1], mode_freq.shape[1]
         b = space.shape[0]
-        ones = torch.ones((1, Nf, 1), dtype=times.dtype, device=times.device)
-        frames = torch.cumsum(ones, dim=1) / self.sr + times[:, :1]
+        # the running count of frames (JAX: cumsum of ones), exact as an arange
+        count = torch.arange(1, Nf + 1, dtype=times.dtype, device=times.device)
+        frames = count[None, :, None] / self.sr + times[:, :1]
 
         n_frames = f_0.shape[1]
         space_f = space.expand(b, n_frames, 1)

@@ -16,14 +16,54 @@ import torch.nn.functional as F
 
 def upsample(signal, factor):
     """Linear interpolation along axis 1 by an integer factor (reference
-    ddsp.py:62-66): torch's non-aligned linear interpolation, which the JAX
-    package re-implements.
+    ddsp.py:62-66): torch's non-aligned linear interpolation
+    (``F.interpolate(mode="linear", align_corners=False)``), which the JAX
+    package re-implements.  On a CUDA tensor it is computed by
+    :func:`upsample_fixed_order`, since the CUDA backward of
+    ``F.interpolate`` accumulates with atomics, in no fixed order; on the
+    CPU, whose backward is a plain loop, by ``F.interpolate`` itself.
 
     signal: (B, T, C) -> (B, T*factor, C).
     """
+    if signal.is_cuda:
+        return upsample_fixed_order(signal, factor)
     out = F.interpolate(signal.transpose(1, 2), scale_factor=factor, mode="linear",
                         align_corners=False)
     return out.transpose(1, 2)
+
+
+def upsample_fixed_order(signal, factor):
+    """:func:`upsample` as weighted sums of the input and its edge-clamped
+    one-step shifts, broadcast over the factor, so that its backward is a
+    plain reduction.  Output sample ``r`` of frame ``t`` sits at
+    ``t + off_r``, ``off_r = (r + 1/2) / factor - 1/2``: the first half of
+    the factor between frames ``t - 1`` and ``t`` (frame 0 alone at the
+    left edge, where torch clamps the source to 0), the second half
+    between ``t`` and ``t + 1`` (the last frame twice at the right edge).
+    It equals ``F.interpolate`` up to rounding (in float32 by up to one or
+    two units in the last place, where torch's kernels fuse a product and
+    a sum)."""
+    if factor == 1:
+        return signal
+    B, T, C = signal.shape
+    off = (torch.arange(factor, dtype=torch.float64) + 0.5) / factor - 0.5
+    lo, hi = off[off < 0], off[off >= 0]
+    # (T, r, 1) weights: below frame t, then above it
+    w_prev = (-lo)[None, :].repeat(T, 1)
+    w_prev[0] = 0.0
+    w_lo = (1.0 + lo)[None, :].repeat(T, 1)
+    w_lo[0] = 1.0
+    w_hi, w_next = 1.0 - hi, hi
+
+    def w(x):
+        return x.to(signal.device, signal.dtype)[..., None]
+
+    x = signal[:, :, None, :]  # (B, T, 1, C)
+    x_prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+    x_next = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+    out = torch.cat([w(w_prev) * x_prev + w(w_lo) * x,
+                     w(w_hi) * x + w(w_next) * x_next], dim=2)  # (B, T, factor, C)
+    return out.reshape(B, T * factor, C)
 
 
 def remove_above_nyquist(amplitudes, pitch, sampling_rate):

@@ -18,10 +18,38 @@ import numpy as np
 import torch
 
 
+SCAN_BLOCK = 128
+
+
+def running_sum(x, dim=-2, block=SCAN_BLOCK):
+    """The inclusive running sum of ``x`` along ``dim``, as
+    ``torch.cumsum``, in a fixed order on every device: within blocks of
+    ``block`` samples a product with a lower-triangular matrix of ones,
+    then each block's total carried by a product with a strictly
+    lower-triangular one.  CUDA's floating-point ``cumsum`` has no fixed
+    order (it is refused under ``torch.use_deterministic_algorithms``), and
+    neither has its backward; a product's forward and backward are
+    matrix products, which repeat bit for bit."""
+    x = x.movedim(dim, -2)
+    n = x.shape[-2]
+    bs = min(block, n)
+    nb = -(-n // bs)
+    pad = nb * bs - n
+    xb = torch.nn.functional.pad(x, (0, 0, 0, pad)) if pad else x
+    xb = xb.reshape(x.shape[:-2] + (nb, bs, x.shape[-1]))
+    def ones(n):
+        return torch.ones(n, n, dtype=x.dtype, device=x.device)
+
+    inner = torch.tril(ones(bs)) @ xb  # (..., nb, bs, C)
+    carry = torch.tril(ones(nb), diagonal=-1) @ inner[..., -1, :]  # (..., nb, C)
+    out = (inner + carry[..., None, :]).reshape(x.shape[:-2] + (nb * bs, x.shape[-1]))
+    return out[..., :n, :].movedim(-2, dim)
+
+
 def phase_sum(freqs, dim=-2):
-    """The running sum of per-sample phase increments along ``dim``,
-    accumulated in float64; below float64 it is wrapped to [0, 2 pi) before
-    it is rounded to the input's dtype.
+    """The running sum of per-sample phase increments along ``dim``
+    (:func:`running_sum`), accumulated in float64; below float64 it is
+    wrapped to [0, 2 pi) before it is rounded to the input's dtype.
 
     A float32 running sum over a one-second item reaches 1e5 rad, which
     float32 resolves only to ~8e-3 rad, and CUDA's cumsum accumulates
@@ -29,7 +57,7 @@ def phase_sum(freqs, dim=-2):
     by ~0.5 rad (the CPU's accumulates in float64).  Wrapped, the phase
     keeps ~5e-7 rad on every device.
     """
-    phase = torch.cumsum(freqs, dim=dim, dtype=torch.float64)
+    phase = running_sum(freqs.to(torch.float64), dim=dim)
     if freqs.dtype == torch.float64:
         return phase
     return torch.remainder(phase, 2 * math.pi).to(freqs.dtype)

@@ -5,9 +5,10 @@ Port of ``torch_fdtd_string_tpu/tasks/evaluate.py`` (reference
 archival contract: track the output's f0 (two-stage YIN in place of
 CREPE), compare it with the input f0, the precorrected target f0 and the
 Fletcher-theory prediction of the first mode, and write
-``string_params.txt``; over the run, ``evaluation.txt``.  Host numpy: it
-chooses no device.  The figures (``plot=True``) wait for the port's plots
-(ROADMAP.md Queue 1 item 12) and raise.
+``string_params.txt``; over the run, ``evaluation.txt``.  With ``plot``
+(``task.plot``; the JAX package always draws) each item's rainbowgrams
+and the run's detune scatters (``utils/plot.py``).  Host numpy: it chooses
+no device.
 
     python -m torch_fdtd_string_tpu_torch.run experiment=evaluate \\
         task.load_dir=<simulation run>
@@ -21,22 +22,18 @@ import os
 import numpy as np
 
 from ..ops import fdm
+from ..utils import plot as uplot
 from ..utils import wav as wavio
 from ..utils.frequency import compute_harmonic_parameters
 from ..utils.vnv import relative_detune_error
 
 
-def _no_plots(plot):
-    if plot:
-        raise NotImplementedError(
-            "evaluate's figures are not ported yet (ROADMAP.md Queue 1 item 12); "
-            "pass task.plot=false")
-
-
 def evaluate_dir(sim_dir, sr=48000, plot=False):
     """The item's score dict, also written to ``string_params.txt``; None
-    for a directory without ``output-u.wav`` and ``string_params.npz``."""
-    _no_plots(plot)
+    for a directory without ``output-u.wav`` and ``string_params.npz``.
+    ``plot`` draws ``eval_f0.pdf`` and ``eval_f0_hsv.png`` beside it."""
+    if plot:
+        uplot.require()
     wav_path = os.path.join(sim_dir, "output-u.wav")
     str_path = os.path.join(sim_dir, "string_params.npz")
     if not (os.path.exists(wav_path) and os.path.exists(str_path)):
@@ -73,19 +70,30 @@ def evaluate_dir(sim_dir, sr=48000, plot=False):
     with open(os.path.join(sim_dir, "string_params.txt"), "w") as f:
         for k, v in scores.items():
             f.write(f"{k}\t{v:.4f}\n")
+    if plot:
+        f0_overlay = f0_tgt if f0_tgt.ndim else None
+        uplot.rainbowgram(os.path.join(sim_dir, "eval_f0.pdf"), wav, wsr,
+                          f0_input=f0_overlay)
+        # the reference's hsv, log-frequency variant with the tracked f0
+        # (reference plot.py:325-394; evaluate.py:62-63)
+        uplot.rainbowgram_hsv(os.path.join(sim_dir, "eval_f0_hsv.png"), wav, wsr,
+                              f0_input=f0_overlay, f0_estimate=f0_est)
     return scores
 
 
 def evaluate(load_dir, sr=48000, plot=False):
     """Score every item directory of ``load_dir`` and write
-    ``evaluation.txt`` (one row per item).  Returns ``[(item, scores)]``."""
-    _no_plots(plot)
+    ``evaluation.txt`` (one row per item); with ``plot`` (which needs
+    matplotlib) the items' figures and the run's ``detune_scatter.pdf`` and
+    ``detune_kappa.pdf``.  Returns ``[(item, scores)]``."""
+    if plot:
+        uplot.require()
     dirs = sorted(
         d for d in glob.glob(f"{load_dir}/*") if os.path.isdir(d) and "codes" not in d
     )
     all_scores = []
     for d in dirs:
-        s = evaluate_dir(d, sr)
+        s = evaluate_dir(d, sr, plot)
         if s is not None:
             all_scores.append((os.path.basename(d), s))
     if all_scores:
@@ -95,4 +103,21 @@ def evaluate(load_dir, sr=48000, plot=False):
             for name, s in all_scores:
                 f.write(name + "\t" + "\t".join(f"{s[k]:.4f}" for k in keys) + "\n")
         print(f"[evaluate] {len(all_scores)} items -> {load_dir}/evaluation.txt")
+        if plot and len(all_scores) > 1:
+            # scatter summaries over the sampled parameter space (reference
+            # plot.py:682-820 scatter_pluck / scatter_kappa)
+            def col(k):
+                return np.array([s[k] for _, s in all_scores])
+
+            detunes = {
+                r"$|f_0^{(\tt est)} - f_0|$": col("abs_diff_input"),
+                r"$|f_0^{(\tt est)} - \hat{f_0}|$": col("abs_diff_target"),
+            }
+            uplot.detune_scatter(os.path.join(load_dir, "detune_scatter.pdf"), detunes,
+                                 col("kappa"), alpha=col("alpha"), p_x=col("p_x"),
+                                 p_a=col("p_a"))
+            uplot.scatter_kappa(os.path.join(load_dir, "detune_kappa.pdf"),
+                                col("abs_diff_input"),
+                                np.abs(col("f0_mode_pred") - col("f0_input_mean")),
+                                col("kappa"), alpha=col("alpha"))
     return all_scores

@@ -7,8 +7,10 @@ running RMS amplitude and hammer strike impulses from onset detection,
 written as ``string-f0.npy``, ``bow-F_b.npy`` and ``hammer-v_H.npy``, which
 a simulation reads through ``task.load_config=<root_dir>/<name>``
 (``tasks/simulate.py::load_presets``), and ``sine-f0.wav``, a sine at the
-tracked f0 to audition it.  The spectrogram figure (``plot=True``) waits for
-the port's plots (ROADMAP.md Queue 1 item 12) and raises.
+tracked f0 to audition it.  :func:`process` also draws ``spec.pdf``, the
+recording's rainbowgram under its f0 track, as the JAX package's does by
+default (``plot=True``, which needs matplotlib).  The command line writes
+the presets alone, so that it runs on a host without matplotlib:
 
     python -m torch_fdtd_string_tpu_torch.tasks.preprocess_data <root_dir> <name>
 """
@@ -20,6 +22,7 @@ import sys
 
 import numpy as np
 
+from ..utils import plot as uplot
 from ..utils import wav as wavio
 from ..utils.audio import stft_mag
 from ..utils.frequency import track_f0
@@ -69,14 +72,13 @@ def sine_like(freqs, length, sr):
     return np.sin(2 * np.pi * np.add.accumulate(f) / sr)
 
 
-def process(root_dir, filename, target_sr=48000, plot=False):
-    """Write the presets of ``{root_dir}/{filename}/input.wav`` beside it.
-    Returns ``(f0, force, hammer)``, each one value per sample at
-    ``target_sr``."""
+def process(root_dir, filename, target_sr=48000, plot=True):
+    """Write the presets of ``{root_dir}/{filename}/input.wav`` beside it,
+    and with ``plot`` (the JAX package's default; it needs matplotlib) the
+    recording's rainbowgram with its f0 track, ``spec.pdf``.  Returns
+    ``(f0, force, hammer)``, each one value per sample at ``target_sr``."""
     if plot:
-        raise NotImplementedError(
-            "preprocess_data's figure is not ported yet (ROADMAP.md Queue 1 item 12); "
-            "pass plot=False")
+        uplot.require("plot")
     d = os.path.join(root_dir, filename)
     x, sr = wavio.read(os.path.join(d, "input.wav"))
     if x.ndim > 1:
@@ -114,6 +116,8 @@ def process(root_dir, filename, target_sr=48000, plot=False):
     np.save(os.path.join(d, "hammer-v_H.npy"), hammer)
 
     wavio.write(os.path.join(d, "sine-f0.wav"), sine_like(f0, len(x), sr) * 0.5, sr)
+    if plot:
+        uplot.rainbowgram(os.path.join(d, "spec.pdf"), x, sr, f0_input=f0)
     return f0_s, force, hammer
 
 
@@ -121,4 +125,4 @@ if __name__ == "__main__":
     if len(sys.argv) != 3:
         sys.exit("usage: python -m torch_fdtd_string_tpu_torch.tasks.preprocess_data "
                  "<root_dir> <name>")
-    process(sys.argv[1], sys.argv[2])
+    process(sys.argv[1], sys.argv[2], plot=False)

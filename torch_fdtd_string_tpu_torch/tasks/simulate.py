@@ -50,8 +50,10 @@ presets of ``tasks/preprocess_data.py`` (:func:`_load_presets`).
 The device is chosen explicitly: the CPU for ``proc.cpu=true`` (where a
 single-precision run takes the kernel's plain PyTorch version), CUDA
 otherwise in either precision, and a host without a usable card raises.
-Not ported yet, and refused with ``NotImplementedError``: plots (see
-ROADMAP.md).
+``task.plot`` draws each written item's spectrogram, f0, phase and
+parameter panels and ``task.plot_state`` its string-motion video
+(``utils/plot.py``, as the JAX package draws them); without matplotlib
+either raises an ``ImportError`` before any work.
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ from ..ops.string_kernel import (bucket_groups, shard_groups, string_chunked_buc
 from ..parallel import mesh
 from ..utils import audio
 from ..utils import misc as ms
+from ..utils import plot as uplot
 from ..utils import wav as wavio
 
 
@@ -89,10 +92,6 @@ def select_device(cpu=False, precision="single"):
             f"a {precision}-precision run needs a CUDA card and torch finds "
             "none; pass proc.cpu=true to run on the CPU")
     return mesh.local_device(cpu)
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 def kernel_gmres_rerun_enabled(task, args):
@@ -275,9 +274,10 @@ class _DeviceState:
     None when the batch takes the host path, where
     :meth:`fetch_element` pulls one string's native-width slice."""
 
-    def __init__(self, su, u1_init, u2_init, post, stats):
+    def __init__(self, su, u1_init, u2_init, post, stats, keep=False):
         self.post = post
-        self._su = su if post is None else None  # free the field once consumed
+        # free the field once consumed, unless a figure reads it (``keep``)
+        self._su = su if post is None or keep else None
         self._head = (u2_init, u1_init)
         self._stats = stats
         self.rescued = {}  # b -> (Nt, M) host state of an f64-rescued string
@@ -331,7 +331,7 @@ POSTPROC_G = 32
 
 def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
             device, sr=48000, postproc_keep=None, stats=None, kernel_gmres=None,
-            chunk_size=None, save_path=None, skip_nan=True, rows=None):
+            chunk_size=None, save_path=None, skip_nan=True, rows=None, keep_state=False):
     """Run one batch through the width-bucketed string kernel (steps
     2..Nt-1), or a float64 batch through the scan engine
     (:func:`process_engine`, in chunks of ``chunk_size`` samples, writing
@@ -347,7 +347,8 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
     (fused preprocessing) the state stays on ``device``: ``uout``/``zout``
     are the device tensors, ``state_u`` is a :class:`_DeviceState` whose
     ``post`` carries the batch's :func:`..ops.postproc.postprocess_batch`
-    outputs when its width spread is below ``G`` (float32 runs), and
+    outputs when its width spread is below ``G`` (float32 runs; the field
+    itself is then freed unless ``keep_state``, for the state video), and
     ``state_z`` is None.  Pulls are counted in ``stats``.
 
     ``kernel_gmres``, a dict, turns on rescue-ladder stage 1: the strings
@@ -452,7 +453,7 @@ def process(state, bow, hammer, bow_mask, hammer_mask, consts: SimConsts, Nt,
                 print(f"[simulate] width spread {spread} >= {G}; this batch "
                       "takes the host path", flush=True)
         u1_h, u2_h = fdm.initialize_state_rows(state.u0, state.v0, consts.k)
-        handle = _DeviceState(aux["state_u"], u1_h, u2_h, post, stats)
+        handle = _DeviceState(aux["state_u"], u1_h, u2_h, post, stats, keep=keep_state)
         return uout_d, zout_d, handle, None, v_r, F_H, u_H, sig0, sig1
     uout, zout = pull(uout_d), pull(zout_d)
     if not consts.collect_state:
@@ -756,7 +757,7 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
              relative_order=4, surface_integral=False, randomize_each="batch",
              manufactured=False, rng=None, collect_state=True,
              postproc_keep=None, stats=None, kernel_gmres=None,
-             chunk_length=-1, save_path=None, skip_nan=True, rows=None):
+             chunk_length=-1, save_path=None, skip_nan=True, rows=None, keep_state=False):
     """Draw one batch and simulate it (reference simulate.py:121-217).
     ``chunk_length`` (seconds, -1 for the whole run), ``save_path`` and
     ``skip_nan`` are the float64 engine's chunking, its
@@ -791,7 +792,8 @@ def simulate(model_name, sr, theta_t, length, batch_size, f0_inf, alpha_inf,
                       total_size, device, sr=sr,
                       postproc_keep=postproc_keep, stats=stats,
                       kernel_gmres=kernel_gmres, chunk_size=chunk_size,
-                      save_path=save_path, skip_nan=skip_nan, rows=rows)
+                      save_path=save_path, skip_nan=skip_nan, rows=rows,
+                      keep_state=keep_state)
     if rows is not None:
         string, bow, hammer, bow_mask, hammer_mask, pluck_mask = shard_draws(
             rows, batch_size, string, bow, hammer, bow_mask, hammer_mask, pluck_mask)
@@ -989,7 +991,7 @@ def run(args, save_dir, model_name, n_samples):
     task = args.task
     sr = task.sr
     if task.plot or task.plot_state:
-        _not_ported("plots (task.plot / task.plot_state)", "Queue 1 item 12")
+        uplot.require("task.plot" if task.plot else "task.plot_state")
     # every rank's share of a batch, refused before anything runs when the
     # batch does not divide
     share = mesh.shard_rows(task.batch_size)
@@ -1036,7 +1038,8 @@ def run(args, save_dir, model_name, n_samples):
                 "save_x_offset_jitter": fuse_jitter,
                 "time": time.strftime("%Y-%m-%dT%H:%M:%S"),
             }) + "\n")
-    collect_state = bool(task.save or fuse)
+    collect_state = bool(task.save or task.plot_state or fuse)
+    plot_lock = threading.Lock()  # pyplot is not thread-safe
     rescue = bool(task.get("rescue_nan", True)) and task.precision != "double"
     kernel_gmres_on = kernel_gmres_rerun_enabled(task, args)
     Nt_run = int(task.length * sr)
@@ -1045,7 +1048,7 @@ def run(args, save_dir, model_name, n_samples):
     def save_item(b, d, excitation, uout, zout, state_u, state_z, v_r, F_H,
                   u_H, string, bow, hammer, Nx_t, Nx_l, sig0, sig1,
                   bow_mask, hammer_mask, pluck_mask, consts_list, keep, rescued):
-        if save_wav or task.save:
+        if save_wav or task.save or task.plot or task.plot_state:
             os.makedirs(d, exist_ok=True)
         if save_wav:
             if task.normalize_output:
@@ -1080,6 +1083,10 @@ def run(args, save_dir, model_name, n_samples):
                 overall["state_u"] = state_u[b, :, : int(Nx_t[b].max()) + 1]
                 overall["state_z"] = state_z[b, :, : int(Nx_l[b].max()) + 1]
             ms.save_simulation_data(d, excitation, overall, consts_list)
+        if task.plot or task.plot_state:
+            with plot_lock:
+                draw_item(b, d, uout, zout, state_u, state_z, v_r, F_H, u_H, string, bow,
+                          hammer, Nx_t, Nx_l)
         if not fuse:
             return
         _sim = dict(bow_mask=bow_mask[b], hammer_mask=hammer_mask[b],
@@ -1125,6 +1132,38 @@ def run(args, save_dir, model_name, n_samples):
         udata.save(os.path.join(fuse_dir, os.path.basename(d)), item, sr=sr)
         stats.time("write", time.perf_counter() - t0)
 
+    def draw_item(b, d, uout, zout, state_u, state_z, v_r, F_H, u_H, string, bow, hammer,
+                  Nx_t, Nx_l):
+        """The item's figures (JAX simulate.py:1530-1558).  A fused run's
+        state is on the device (its transverse field kept for the video);
+        it draws no longitudinal state."""
+        def field(st, w):
+            if st is None:
+                return None
+            if isinstance(st, _DeviceState):
+                return st.fetch_element(b, w) if task.plot_state else None
+            return st[b, :, :w]
+
+        su_b = field(state_u, int(Nx_t[b].max()) + 1)
+        if task.plot:
+            uplot.simulation_plots(d, uout[b], zout[b], string.target_f0[b], sr)
+            uplot.simulation_data(
+                d, uout[b], zout[b], v_r[b], F_H[b], u_H[b], su_b,
+                field(state_z, int(Nx_l[b].max()) + 1),
+                string_params=[
+                    string.kappa[b], string.alpha[b], string.u0[b][None, :],
+                    string.v0[b][None, :], string.p_a[b], string.f0[b],
+                    string.pos[b], string.T60[b], string.target_f0[b],
+                ],
+                bow_params=[bow.x_b[b], bow.v_b[b], bow.F_b[b], bow.phi_0[b],
+                            bow.phi_1[b], bow.wid[b]],
+                hammer_params=[hammer.x_H[b], hammer.v_H[b], hammer.u_H[b],
+                               hammer.w_H[b], hammer.M_r[b], hammer.alpha[b]],
+                sr=sr,
+            )
+        if task.plot_state:
+            uplot.state_video(d, su_b, sr)
+
     with concurrent.futures.ThreadPoolExecutor(
         max_workers=max(int(args.proc.num_workers), 1)
     ) as pool:
@@ -1154,6 +1193,7 @@ def run(args, save_dir, model_name, n_samples):
                 manufactured=task.manufactured, rng=rng,
                 collect_state=collect_state,
                 postproc_keep=(keep_it, fuse_Nx) if fuse else None,
+                keep_state=bool(task.plot_state),
                 stats=stats, kernel_gmres=ladder, chunk_length=task.chunk_length,
                 save_path=save_path, skip_nan=task.skip_nan, rows=rank_rows, **kw,
             )
@@ -1224,7 +1264,7 @@ def run(args, save_dir, model_name, n_samples):
                 rms = torch.sqrt(torch.mean(uout.double() ** 2, dim=-1))
                 db = 20 * torch.log10(rms + float(np.finfo(np.float64).eps))
                 readouts = (_HostCopy({"uout": uout, "zout": zout}, stats)
-                            if save_wav or task.save else None)
+                            if save_wav or task.save or task.plot else None)
                 is_silent = (db <= task.silence_threshold).cpu().numpy()
                 stats.count(is_silent.nbytes)
                 uout, zout = _Readout(readouts, "uout"), _Readout(readouts, "zout")

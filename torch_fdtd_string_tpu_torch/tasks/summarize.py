@@ -2,8 +2,9 @@
 
 Port of ``torch_fdtd_string_tpu/tasks/summarize.py``: the mean, median and
 standard deviation of every score column, from ``evaluation.txt`` or else
-from the items' ``string_params.txt``, into ``summary.txt``.  The figures
-wait for the port's plots (ROADMAP.md Queue 1 item 12).
+from the items' ``string_params.txt``, into ``summary.txt``; and, best
+effort as in the JAX package (a host without matplotlib prints that it
+skipped them), ``summary_f0.pdf`` and ``summary_detune.pdf``.
 
     python -m torch_fdtd_string_tpu_torch.run proc.simulate=false \\
         proc.summarize=true task.load_dir=<simulation run>
@@ -15,6 +16,8 @@ import glob
 import os
 
 import numpy as np
+
+from ..utils import plot as uplot
 
 
 def _read_rows(load_dir):
@@ -67,5 +70,38 @@ def summarize(load_dir):
         for name, vals in stats.items():
             f.write(name + "\t" + "\t".join(f"{v:.4f}" for v in vals) + "\n")
     print(f"[summarize] {len(rows)} items -> {out}")
-    print("[summarize] the summary figures are not ported yet (ROADMAP.md Queue 1 item 12)")
+    try:
+        _figures(load_dir, header, arr)
+    except Exception as err:  # the figures are best-effort (JAX summarize.py:100)
+        print(f"[summarize] plot skipped: {err!r}")
     return stats
+
+
+def _figures(load_dir, header, arr):
+    """The estimated against the target f0, and the detune scatters over
+    the sampled parameters (reference plot.py:682-820 scatter_kappa /
+    scatter_pluck role; JAX summarize.py:70-98)."""
+    plt = uplot.pyplot()
+    if "f0_target_mean" in header and "f0_estimate" in header:
+        ti = header.index("f0_target_mean")
+        ei = header.index("f0_estimate")
+        fig, ax = plt.subplots(figsize=(4, 4))
+        ax.scatter(arr[:, ti], arr[:, ei], s=8)
+        lim = [arr[:, ti].min() * 0.9, arr[:, ti].max() * 1.1]
+        ax.plot(lim, lim, "k--", lw=0.5)
+        ax.set_xlabel("target f0 (Hz)")
+        ax.set_ylabel("estimated f0 (Hz)")
+        fig.tight_layout()
+        fig.savefig(os.path.join(load_dir, "summary_f0.pdf"), dpi=120)
+        plt.close(fig)
+    if "kappa" in header:
+        def col(k):
+            return arr[:, header.index(k)] if k in header else None
+
+        detunes = {
+            r"$|f_0^{\tt est} - f_0|$": col("abs_diff_input"),
+            r"$|f_0^{\tt est} - \hat{f_0}|$": col("abs_diff_target"),
+        }
+        detunes = {k: v for k, v in detunes.items() if v is not None}
+        uplot.detune_scatter(os.path.join(load_dir, "summary_detune.pdf"), detunes,
+                             col("kappa"), col("alpha"), col("p_x"), col("p_a"))

@@ -8,13 +8,13 @@ reference's ``plot.time_experiment`` machinery, plot.py:821-923, behind the
 batch-size and length figure of the ICASSP paper).  Writes
 ``time_experiment.json``: ``backend`` and ``device`` (where it ran),
 ``batch`` and ``length``, each a dict of curves ``kernel`` and ``engine``
-of ``[x, seconds]`` points.  The kernel curve times ``pluck_chunked`` (on
+of ``[x, seconds]`` points, and then, as the JAX package does,
+``time_experiment.pdf`` (``utils/plot.py::time_scaling_figure``; with
+``plot=False`` the figure is left out, for a host without matplotlib).  The kernel curve times ``pluck_chunked`` (on
 the card the CUDA kernel, CUDA events; on the CPU its plain version), the
 engine curve the eager scan engine over ``engine_length`` seconds, scaled
 to the kernel's length on the batch axis.  A point that fails raises: the sweep
-never writes a curve with a point missing.  The JAX package also draws
-``time_experiment.pdf``; that figure waits for the port of the plots
-(ROADMAP Queue 1 item 12), and the card's host has no matplotlib.
+never writes a curve with a point missing.
 
 The device is the CUDA card unless the caller asks for the CPU; without a
 card the sweep raises.
@@ -35,6 +35,7 @@ from ..core.engine import (BowParams, Carry, HammerParams, SimConsts,
                            StringParams, simulate_chunk)
 from ..ops import fdm
 from ..ops.string_kernel import pluck_chunked
+from ..utils import plot as uplot
 
 
 def build_workload(B=16, length=1.0, sr=48000, seed=7, bowed=False, device="cpu"):
@@ -148,13 +149,16 @@ def sweep_device(device=None):
 
 def run_sweep(out_dir=".", batches=(4, 16, 64, 256), lengths=(0.25, 0.5, 1.0),
               with_engine=True, device=None, batch_length=1.0, engine_length=0.25,
-              reps=2):
+              reps=2, plot=True):
     """The JAX sweep's axes (reference plot.py:826-838): the kernel at each
     batch size over ``batch_length`` seconds and at B=16 over each length;
     the engine at batch sizes up to 16 over ``engine_length`` seconds
     (scaled to ``batch_length``) and at the lengths up to
     ``engine_length``.  Returns the results written to
-    ``out_dir/time_experiment.json``."""
+    ``out_dir/time_experiment.json``; ``plot`` (which needs matplotlib)
+    draws ``time_experiment.pdf`` after it."""
+    if plot:
+        uplot.require("plot")
     device = sweep_device(device)
     results = {"backend": device.type,
                "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -182,6 +186,12 @@ def run_sweep(out_dir=".", batches=(4, 16, 64, 256), lengths=(0.25, 0.5, 1.0),
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "time_experiment.json"), "w") as f:
         json.dump(results, f, indent=1)
+    if plot:
+        # JAX time_experiment.py:115-125: the curves that have points
+        uplot.time_scaling_figure(os.path.join(out_dir, "time_experiment.pdf"), {
+            "batch size": {k: v for k, v in curves_b.items() if v},
+            "length (s)": {k: v for k, v in curves_l.items() if v},
+        })
     return results
 
 

@@ -23,8 +23,12 @@ state.  In a multi-rank run (``parallel/mesh.py``) ``train`` is data
 parallel, as the JAX package's mesh trains: every rank takes its rows of
 each global batch and the gradients are averaged before each step, so a
 step equals the single-card step; validation, the logs, ``profile.json``,
-the checkpoints and ``BEST`` are rank 0's alone.  Plots (ROADMAP Queue 1
-item 12) are not ported.
+the checkpoints and ``BEST`` are rank 0's alone.  With ``task.plot``
+``train`` draws each validation's first batch (``callbacks.plot_results``)
+and ``evaluate`` the first test batch's spectrograms, or with
+``task.plot_test_video`` each test batch's state summary and video.
+``evaluate`` also serves a run the JAX package trained: its orbax
+checkpoints (``step_<n>/``) are read by ``models/convert.py``.
 """
 
 from __future__ import annotations
@@ -46,12 +50,14 @@ import torch
 from ..core import analytic
 from ..data.dataset import DataLoader, Testset, Trainset, _collate
 from ..models import optim as optlib
+from ..models.convert import load_orbax, state_dict_from_jax
 from ..models.losses import build_loss_registry
 from ..models.objective import build_metric_registry
 from ..parallel import mesh
 from ..utils.profiling import Timer
 from . import synthesize as S
-from .callbacks import save_results, save_test_results
+from ..utils import plot as uplot
+from .callbacks import plot_results, plot_state_video, save_results, save_test_results
 from .simulate import select_device
 
 PKG = __name__.split(".")[0]
@@ -107,32 +113,53 @@ def _optstate_path(ckpt_path, step):
 
 def load_checkpoint(ckpt_path, model):
     """Load ``ckpt_path`` into ``model`` strictly: no entry left over on
-    either side."""
+    either side.  A ``step_<n>.pt`` of the port, or a ``step_<n>/``
+    directory the JAX package wrote with orbax (``models/convert.py``:
+    read by tensorstore, carried by ``state_dict_from_jax``).  Returns the
+    step."""
+    if os.path.isdir(ckpt_path):
+        variables = load_orbax(ckpt_path)
+        model.load_state_dict(state_dict_from_jax(model, variables), strict=True)
+        return _step(ckpt_path)
     ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
     model.load_state_dict({**ckpt["params"], **ckpt["constants"]}, strict=True)
     return ckpt["step"]
 
 
+_CKPT = re.compile(r"step_(\d+)(\.pt)?$")
+
+
 def _step(path):
-    return int(re.search(r"step_(\d+)", os.path.basename(path)).group(1))
+    return int(_CKPT.match(os.path.basename(path)).group(1))
+
+
+def _is_checkpoint(path):
+    """A port checkpoint file ``step_<n>.pt`` or a JAX checkpoint
+    directory ``step_<n>`` (not a file being written, nor orbax's
+    temporary directories)."""
+    m = _CKPT.match(os.path.basename(path))
+    return bool(m) and (os.path.isfile(path) if m.group(2) else os.path.isdir(path))
 
 
 def latest_checkpoint(run_dir, prefer_best=False):
     """The run's checkpoint (reference trainer.py:21-27): the one a
     ``BEST`` marker names when ``prefer_best`` and it exists, else the
-    latest step."""
-    pats = [f"{run_dir}/string/*/checkpoints/step_*.pt", f"{run_dir}/checkpoints/step_*.pt"]
-    hits = [h for p in pats for h in glob.glob(p)]
+    latest step; in either run layout, the port's (``step_<n>.pt``) or the
+    JAX package's (``step_<n>/``, JAX trainer.py:111-130).  Of two of one
+    step the port's file is taken."""
+    pats = [f"{run_dir}/string/*/checkpoints/step_*", f"{run_dir}/checkpoints/step_*"]
+    hits = [h for p in pats for h in glob.glob(p) if _is_checkpoint(h)]
     if not hits:
         raise FileNotFoundError(f"no checkpoint under {run_dir}")
     for p in pats if prefer_best else []:
         for m in glob.glob(os.path.join(os.path.dirname(p), "BEST")):
             with open(m) as f:
                 best = f.read().split()[0]
-            cand = os.path.join(os.path.dirname(m), f"step_{best}.pt")
-            if os.path.isfile(cand):
-                return cand
-    return sorted(hits, key=_step)[-1]
+            for name in (f"step_{best}.pt", f"step_{best}"):
+                cand = os.path.join(os.path.dirname(m), name)
+                if _is_checkpoint(cand):
+                    return cand
+    return max(hits, key=lambda h: (_step(h), h.endswith(".pt")))
 
 
 def _sync(device):
@@ -315,15 +342,22 @@ def _eval_sweep(eval_fn, gather_fn, n_items, bs, seed, device, on_first=None):
             print(f"[trainer] eval sweep out of memory; retrying at batch {bs}", flush=True)
 
 
-def _stream_sweep(eval_fn, loader, n_modes, block, sr, seed, device):
+def _stream_sweep(eval_fn, loader, n_modes, block, sr, seed, device, on_first=None):
     """The eval sweep of a split that is not device-cached."""
     vals = []
-    for batch in loader:
+    for vi, batch in enumerate(loader):
         prep = S.prepare_batch(batch, n_modes, block, sr)
         generator = torch.Generator(device=device).manual_seed(seed)
-        _, ld = eval_fn(S.to_device(prep, device), generator)
+        outputs, ld = eval_fn(S.to_device(prep, device), generator)
         vals.append(dict({k: float(v) for k, v in ld.items()}, _n=len(prep["gt"])))
+        if vi == 0 and on_first is not None:
+            on_first(outputs)
     return vals
+
+
+def _host_items(outputs, n=None):
+    """The first ``n`` items (all without ``n``) of each output, as numpy."""
+    return {k: v[:n].detach().cpu().numpy() for k, v in outputs.items()}
 
 
 def _wmean(vals, prefix):
@@ -389,8 +423,7 @@ def train(args, save_dir):
     ``TrainState``."""
     task = args.task
     if task.get("plot"):
-        raise NotImplementedError(
-            "task.plot is not ported yet (ROADMAP.md Queue 1 item 12); pass task.plot=false")
+        uplot.require("task.plot")
     rows = mesh.shard_rows(task.batch_size)  # refused before anything runs
     sharded = mesh.world_size() > 1
     lead = mesh.rank() == 0
@@ -528,13 +561,19 @@ def train(args, save_dir):
             continue
         model.eval()
         eval_seed = 1234 + epoch
+
+        def plot_first(outputs):
+            # JAX trainer.py:566-592: the first valid batch's first items
+            plot_results(save_dir, "valid", _host_items(outputs, 4), sr, step=step)
+
+        on_first = plot_first if task.get("plot") else None
         with prof.scope("valid_sweep"):
             if vgather is not None:
                 vals, eval_bs = _eval_sweep(eval_step, vgather, n_valid, eval_bs, eval_seed,
-                                            device)
+                                            device, on_first=on_first)
             else:
                 vals = _stream_sweep(eval_step, valid_loader, n_modes, block, sr, eval_seed,
-                                     device)
+                                     device, on_first=on_first)
         mean = _wmean(vals, "valid")
         mean.update({"epoch": epoch, "step": step, "split": "valid",
                      "lr": float(schedule(step)), "epoch_time": time.time() - t0})
@@ -581,6 +620,10 @@ def restore(save_dir, model, optimizer):
     ``optstate`` into ``optimizer`` (or fast-forward the optimizer's count
     when there is none); returns the step."""
     ckpt = latest_checkpoint(save_dir)
+    if os.path.isdir(ckpt):
+        raise NotImplementedError(
+            f"{ckpt} is a JAX (orbax) checkpoint: resuming a JAX run is not ported "
+            "(ROADMAP.md); tools/convert_orbax.py makes a run the port scores")
     step = load_checkpoint(ckpt, model)
     opt_path = _optstate_path(ckpt, step)
     if os.path.isfile(opt_path):
@@ -655,9 +698,7 @@ def evaluate(args, save_dir):
         return _snapshot_evaluate(run_dir, args, save_dir)
     task = args.task
     if task.get("plot") or task.get("plot_test_video"):
-        raise NotImplementedError(
-            "task.plot / task.plot_test_video are not ported yet (ROADMAP.md Queue 1 "
-            "item 12); pass task.plot=false")
+        uplot.require("task.plot" if task.get("plot") else "task.plot_test_video")
     device = select_device(args.proc.cpu)
     model = S.build_model(args, generator=torch.Generator().manual_seed(args.proc.seed))
     ckpt = latest_checkpoint(run_dir, prefer_best=True)
@@ -708,6 +749,23 @@ def evaluate(args, save_dir):
                               partial=True)
             save_test_results(save_dir, mod_rows, HEADER, name="modals.partial", ids=ids,
                               partial=True)
+        if task.get("plot_test_video"):
+            # the test batch is the spatial axis of one string (reference
+            # callbacks.py:137-179 PlotStateVideo.summary; JAX trainer.py:749-759)
+            gain = prep.get("gain", np.ones((1, 1)))
+            host = _host_items(outputs)
+            plot_state_video(os.path.join(save_dir, "state"), (host["preds"] * gain).T,
+                             (prep["analytic"][..., :n] * gain).T,
+                             (host["target"] * gain).T, sr, name=f"0-{bi}")
+        elif bi == 0 and task.get("plot"):
+            # JAX trainer.py:760-775
+            host = _host_items(outputs, 4)
+            uplot.rainbowgram(os.path.join(save_dir, "test_pred_spec.pdf"), host["preds"][0],
+                              sr)
+            uplot.rainbowgram(os.path.join(save_dir, "test_target_spec.pdf"),
+                              host["target"][0], sr)
+            uplot.est_tar_specs(os.path.join(save_dir, "test_specs"), host["preds"],
+                                host["target"], prep["analytic"][:4, :n], sr)
         if task.get("save_results"):
             save_results(os.path.join(save_dir, "eval", str(task.load_name)),
                          outputs["preds"].cpu().numpy(), sr,
