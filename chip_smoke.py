@@ -12,7 +12,7 @@ Phases; any failure exits non-zero:
 2. build the string kernel from ``torch_fdtd_string_tpu_torch/csrc``;
 3. kernel against its plain PyTorch version on the card, float32, 256 steps,
    one shape per specialization: (a) the B=4 bench-workload pluck draw and
-   (b) the first nsynth-like batch (B=24), plus a 2,048-step divergence
+   (b) the first nsynth-like batch (B=24), plus a 1,024-step divergence
    record at (b); (c) the first bowed batch (B=16), (d) the first hammered
    batch (B=24), (e) the first ``model.excitation=null`` batch (B=24, bowed,
    hammered and plucked strings), (f) draw (a) with the interpolated
@@ -143,7 +143,26 @@ Phases; any failure exits non-zero:
    directory of the JAX package's layout (an orbax ``step_<n>/``) raises
    the ImportError naming ``tools/convert_orbax.py``.
 
-Phases 13-21 run after phase 10 and before the ladder phases 11-12, whose
+22. the port alone, the profiling scopes and the tools: (a) a copy of
+   ``torch_fdtd_string_tpu_torch/`` alone in a directory of its own (no JAX
+   package beside it; a process that refuses to import jax or the JAX
+   package; its ``build/`` seeded with the kernel library and the root
+   table) runs ``python -m torch_fdtd_string_tpu_torch.run
+   experiment=nsynth-like`` at 8 strings of 0.25 s, and ``run.main`` the
+   same overrides here: every wav and npz of the two runs equal bit for
+   bit, the snapshot holding ``configs/``; (b)
+   ``utils/profiling.py::device_timer`` around a bucketed launch of phase
+   9's first batch within 10% of the launch's CUDA events, in turns, and
+   ``trace``'s Chrome trace naming a ``string_step`` kernel; (c)
+   ``tools.batch_sweep`` at B 16, 32 and ``tools.length_sweep`` at 0.25,
+   0.5 s (B=64), one rep each; (d) ``tools.prebuild_cache`` over phase 18's
+   corpus (its caches removed first): each cache equal bit for bit to the
+   trainer's own, and the trainer loads it; ``tools.yin_accuracy --n 5``;
+   ``tools.attrition_study`` on the card over a 0.0075 s run of phase 12's
+   draw with ``task.dump_draws=true task.rescue_nan=false`` (its poisoned
+   strings skipped), one control; (e) ``dryrun_train_step`` on the card.
+
+Phases 13-22 run after phase 10 and before the ladder phases 11-12, whose
 length follows the time left.
 
 Phase 2 also prints ptxas's registers and spills of every instance.
@@ -170,8 +189,8 @@ and (b) against its plain version and, two sweeps, against the adaptive
 kernel; (u) ``pluck_chunked`` against ``string_chunked`` bit for bit (one
 ``pluck-gmres`` launch) and against its plain version on draw (a).
 
-Phases 4-16, 19 and 20 each set the launch counts to 0 just before a run
-and read them just after.  The line before the last is the kernels' JSON record, one
+Phases 4-16, 19, 20 and 22 each set the launch counts to 0 just before a
+run and read them just after.  The line before the last is the kernels' JSON record, one
 entry per specialization (the MMS and fixed-schedule instances among them),
 one for the bucketed launch, one per GMRES instance the main paths launched
 (``pluck_chunked`` launches ``pluck-gmres``); the last line is ``{"ok":
@@ -367,6 +386,34 @@ LOSS64, GRAD64, PARAM64, LOSS32, GRAD32, F32_RATIO = 1e-9, 1e-6, 1e-7, 5e-4, 0.4
 BANK_NP_BOUND, PRESET_F0_REL = 1e-5, 0.03
 PRESETS = ["experiment=nsynth-like", "task.fuse_preprocess=false", "task.num_samples=4",
            "task.batch_size=4", "task.length=1.0"]
+# phase 22: the package run alone (a copy of torch_fdtd_string_tpu_torch/
+# with no JAX package beside it) and from the repository, at a cut size of
+# the headline; the profiling scope against CUDA events; the tools.  The
+# attrition run is phase 12's draw (proc.seed=97, whose mix batch the first
+# pass poisons at step 286; the item names drawn from the run's generator
+# would move the draws, so they are fixed as in phase 12) with the skip
+# recipe, cut past the poisoning
+ALONE = ["experiment=nsynth-like", "task.num_samples=8", "task.batch_size=8",
+         "task.length=0.25", "task.randomize_name=false"]
+TIMER_REL = 0.1
+ATTRITION_RUN = [o for o in LADDER_CLASSIC if not o.startswith("task.rescue_nan")] + [
+    "task.rescue_nan=false", "task.dump_draws=true", "task.save=false", "task.length=0.0075",
+    "task.randomize_name=false"]
+# a process that refuses every import of jax and of the JAX package
+REFUSE_JAX = """
+import importlib.abc, runpy, sys
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "torch_fdtd_string_tpu"):
+            raise ImportError(f"the standalone port imported {name}")
+sys.meta_path.insert(0, Refuse())
+sys.argv = ["run"] + sys.argv[1:]
+runpy.run_module("torch_fdtd_string_tpu_torch.run", run_name="__main__")
+"""
+# phase 3 (b)'s divergence record, kernel against plain version: 2,048
+# steps until phase 22 came in and the plain version's ~20 s per 1,024
+# steps went to it
+DIVERGENCE_STEPS = 1024
 # phase 16's engine point (batch, seconds): the eager engine takes tens of
 # ms per step on the card
 ENGINE_POINT = (4, 0.005)
@@ -3100,6 +3147,217 @@ def drive_phase21(dmsp_over, card):
         raise AssertionError("[21] a JAX run was scored without tensorstore")
 
 
+def same_outputs(a, b):
+    """Every wav (byte for byte) and every ``.npz`` array (bit for bit) under
+    run directory ``a`` equals its namesake under ``b``, and neither has one
+    the other lacks; returns how many files were compared."""
+    def files(top):
+        return sorted(os.path.relpath(p, top) for p in glob.glob(os.path.join(top, "**", "*"),
+                                                                 recursive=True)
+                      if p.endswith((".wav", ".npz")) and os.sep + "codes" + os.sep not in p)
+
+    names = files(a)
+    if not names or names != files(b):
+        raise AssertionError(f"the runs wrote other files: {len(names)} and {len(files(b))}")
+    for name in names:
+        pa, pb = os.path.join(a, name), os.path.join(b, name)
+        if name.endswith(".wav"):
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"{name} differs")
+            continue
+        with np.load(pa) as za, np.load(pb) as zb:
+            if sorted(za.files) != sorted(zb.files) or not all(
+                    za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k], equal_nan=True)
+                    for k in za.files):
+                raise AssertionError(f"{name} differs")
+    return len(names)
+
+
+def drive_phase22(train_over, dev, card):
+    """Phase 22: the port alone, the profiling scopes and the five tools.
+    (a) a copy of ``torch_fdtd_string_tpu_torch/`` alone (no JAX package
+    beside it, importing jax or the JAX package refused) runs
+    ``python -m torch_fdtd_string_tpu_torch.run experiment=nsynth-like`` at
+    a cut size in a process of its own (its ``build/`` seeded with the
+    checkout's kernel library and root table, so that it builds neither);
+    the same overrides through ``run.main`` here; every item of the two
+    equal bit for bit, the standalone snapshot holding ``configs/``.  (b)
+    ``utils/profiling.py::device_timer`` around a bucketed launch against
+    the launch's CUDA events, in turns; ``trace``'s Chrome trace names a
+    ``string_step`` kernel.  (c) ``tools.batch_sweep`` at B 16, 32 and
+    ``tools.length_sweep`` at 0.25, 0.5 s, one rep each.  (d)
+    ``tools.prebuild_cache`` over phase 18's corpus, its caches equal to the
+    trainer's own, which the trainer then loads; ``tools.yin_accuracy --n
+    5``; ``tools.attrition_study`` over a cut run of phase 12's poisoned
+    draw with every draw dumped.  (e) ``dryrun_train_step`` on the card.
+    Returns the bucketed launches of (a)'s run here and the GMRES
+    instances' launches of (c) (counts set to 0 just before each, read just
+    after)."""
+    import contextlib
+    import io
+
+    from torch_fdtd_string_tpu_torch import run as port_run
+    from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+    from torch_fdtd_string_tpu_torch.tasks import trainer
+    from torch_fdtd_string_tpu_torch.tools import (attrition_study, batch_sweep, length_sweep,
+                                                   prebuild_cache, yin_accuracy)
+    from torch_fdtd_string_tpu_torch.data.dataset import Trainset
+    from torch_fdtd_string_tpu_torch.utils import profiling
+    from torch_fdtd_string_tpu_torch.utils.config import compose
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "results", "chip_smoke_22")
+    shutil.rmtree(root, ignore_errors=True)
+    alone = os.path.join(root, "alone")
+    shutil.copytree(os.path.join(ROOT, "torch_fdtd_string_tpu_torch"),
+                    os.path.join(alone, "torch_fdtd_string_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    seeded = glob.glob(os.path.join(ROOT, "build", "kernels", "libstring_step.so")) + glob.glob(
+        os.path.join(ROOT, "build", "cache", "analytic_roots_*.npz"))
+    for path in seeded:  # copy2 keeps the library newer than its copied source
+        dst = os.path.join(alone, os.path.relpath(path, ROOT))
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        shutil.copy2(path, dst)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", REFUSE_JAX, *ALONE, "task.save_name=run"],
+                         cwd=alone, env=env, capture_output=True, text=True, timeout=300)
+    alone_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"[22] (a) the package alone exited {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    snapshot = os.path.join(alone, "results", "run", "codes", "torch_fdtd_string_tpu_torch",
+                            "configs")
+    if not os.path.isfile(os.path.join(snapshot, "config.yaml")):
+        raise AssertionError("[22] (a) the standalone run's codes/ holds no configs/")
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    here = port_run.main(ALONE + [f"task.root_dir={root}", "task.save_name=run"])
+    torch.cuda.synchronize()
+    here_s = time.perf_counter() - t0
+    bucketed = sum(sk.string_chunked.launches_by_spec.values())
+    if bucketed < 1:
+        raise AssertionError("[22] (a) the run launched no string kernel")
+    n_files = sum(same_outputs(d, os.path.join(alone, "results", os.path.basename(d)))
+                  for d in (here, here + "-prep"))
+    print(f"[22] (a) the package alone ({len(seeded)} build files seeded): "
+          f"{' '.join(ALONE)}: exit 0 in {alone_s:.2f} s with start-up; from the "
+          f"repository {here_s:.2f} s, launches {dict(sk.string_chunked.launches_by_spec)}; "
+          f"{n_files} wav and npz files equal bit for bit; codes/ holds configs/ [{card}]")
+
+    # (b) device_timer against CUDA events around one bucketed launch, in turns
+    args, kwargs = nsynth_inputs(FUSED, dev)
+    hb = host_bounds(args)
+    launch = lambda: sk.string_chunked_bucketed(*args, host_bounds=hb, **kwargs)
+    launch()
+    torch.cuda.synchronize()
+    event_ms, timer_ms, log = [], [], {}
+    for _ in range(2):
+        event_ms.append(timed_once(launch)[1])
+        with profiling.device_timer("bucketed", log):
+            launch()
+        timer_ms.append(1e3 * log["bucketed"][-1])
+    worst = max(abs(t - e) / e for t, e in zip(timer_ms, event_ms))
+    if worst > TIMER_REL:
+        raise AssertionError(f"[22] (b) device_timer {timer_ms} ms against CUDA events "
+                             f"{event_ms} ms")
+    trace_dir = os.path.join(root, "trace")
+    with profiling.trace(trace_dir) as prof:
+        launch()
+        torch.cuda.synchronize()
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+    kernels = sorted({n for n in names if "string_step" in n})
+    if not kernels:
+        raise AssertionError("[22] (b) the trace names no string_step kernel")
+    device_us = sum(getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+                    if "string_step" in e.key)
+    print(f"[22] (b) bucketed launch of phase 9's first batch (B={args[0].shape[0]}, "
+          f"{args[0].shape[1]} steps): device_timer {', '.join(f'{t:.3f}' for t in timer_ms)} ms, "
+          f"CUDA events {', '.join(f'{e:.3f}' for e in event_ms)} ms (largest gap "
+          f"{100 * worst:.2f}%); trace.json names {kernels[0][:80]}, device time "
+          f"{device_us / 1e3:.3f} ms [{card}]")
+
+    # (c) the sweeps: each point one JSON line, then the closing line
+    sk.reset_launch_counts()
+    sweeps = {"batch": batch_sweep.main(["--batches", "16,32", "--reps", "1"]),
+              "length": length_sweep.main(["--lengths", "0.25,0.5", "--reps", "1"])}
+    gm = dict(sk.string_chunked.launches_by_spec)
+    for tag, rows in sweeps.items():
+        if not all(np.isfinite(r["audio_s_per_s"]) and r["audio_s_per_s"] > 0 for r in rows):
+            raise AssertionError(f"[22] (c) {tag} sweep: {rows}")
+        print(f"[22] (c) {tag} sweep: " + "; ".join(
+            f"B={r['B']} {r['length_s']} s {r['audio_s_per_s']:.2f} audio-s/s" for r in rows)
+            + f" [{card}]")
+    print(f"[22] (c) kernel launches {gm}")
+
+    # (d) the tools on host data: prebuild_cache over phase 18's corpus
+    opts = dict(o.split("=", 1) for o in train_over if o.startswith("task.load_"))
+    data_dir, name = opts["task.load_dir"], opts["task.load_name"]
+    own = {}
+    for path in sorted(glob.glob(os.path.join(data_dir, name, "_prep_*.npz"))):
+        with np.load(path) as z:  # the trainer's own build, in phase 18
+            own[os.path.basename(path)] = {k: z[k] for k in z.files}
+        os.remove(path)
+    t0 = time.perf_counter()
+    paths = prebuild_cache.main(["--load-name", name, "--data-dir", data_dir])
+    built_s = time.perf_counter() - t0
+    if sorted(os.path.basename(p) for p in paths) != sorted(own):
+        raise AssertionError(f"[22] (d) prebuild_cache wrote {paths}, the trainer {sorted(own)}")
+    for path in paths:
+        with np.load(path) as z:
+            want = own[os.path.basename(path)]
+            if sorted(z.files) != sorted(want) or not all(
+                    np.array_equal(z[k], want[k]) for k in z.files):
+                raise AssertionError(f"[22] (d) {path} is not the trainer's build")
+    args22 = compose(port_run.CONFIG_DIR, train_over)
+    trim = int(args22.task.train_lens * args22.task.sr)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        trainer._build_host_cache(Trainset(data_dir, name, trim=trim),
+                                  args22.model.n_modes, args22.model.block_size,
+                                  args22.task.sr, cache_path=paths[0], drop=("analytic",))
+    if "loaded host cache" not in out.getvalue():
+        raise AssertionError(f"[22] (d) the trainer built its cache again: {out.getvalue()}")
+    print(f"[22] (d) prebuild_cache over phase 18's corpus: {len(paths)} caches in "
+          f"{built_s:.2f} s, each equal bit for bit to the trainer's own; the trainer loads "
+          f"them and builds none [{card}]")
+    t0 = time.perf_counter()
+    rows = yin_accuracy.main(["--n", "5", "--out", os.path.join(root, "yin_accuracy.md")])
+    errs = [r[4] for r in rows]
+    if not all(np.isfinite(errs)):
+        raise AssertionError(f"[22] (d) yin_accuracy rows {rows}")
+    print(f"[22] (d) yin_accuracy --n 5: largest error {max(errs):.4f} Hz, "
+          f"{time.perf_counter() - t0:.2f} s")
+    sk.reset_launch_counts()
+    run_dir = port_run.main(ATTRITION_RUN + [f"task.root_dir={root}",
+                                             "task.save_name=attrition"])
+    first_pass = dict(sk.string_chunked.launches_by_spec)
+    n_nan = sum(str(d["why"]) == "nan" for d in attrition_study.load_draws(run_dir))
+    if n_nan < 1:
+        raise AssertionError("[22] (d) the attrition run's first pass poisoned no draw")
+    t0 = time.perf_counter()
+    record = attrition_study.main(["--run", run_dir, "--controls", "1", "--length", "0.002",
+                                   "--out", os.path.join(root, "attrition_study.json")])
+    if [r["group"] for r in record["rows"]].count("skip") != n_nan:
+        raise AssertionError(f"[22] (d) attrition rows {record['rows']}")
+    print(f"[22] (d) attrition_study over phase 12's draw ({' '.join(ATTRITION_RUN[-5:])}; "
+          f"kernel launches {first_pass}): {n_nan} skipped, {len(record['rows']) - n_nan} "
+          f"control; the float64 engine over 0.002 s on the card in "
+          f"{time.perf_counter() - t0:.2f} s: " + "; ".join(
+              f"{r['file']} {r['group']} alpha {r['alpha']} f0 {r['f0']} nan "
+              f"{r['reference_nan']}" for r in record["rows"]) + f" [{card}]")
+
+    # (e) the tiny data-parallel step's entry point, on the card
+    losses = trainer.dryrun_train_step()
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"[22] (e) dryrun_train_step {losses}")
+    print(f"[22] (e) dryrun_train_step on the card: {losses}")
+    print(f"[22] phase wall {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return bucketed, gm
+
+
 def add_gmres(acc, by_spec):
     for spec, n in by_spec.items():
         if spec.endswith("-gmres"):
@@ -3348,12 +3606,12 @@ def main():
         # the JSON record keeps the last shape of each specialization
         record[spec] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    args, kwargs = truncate(shape_b, 2048)
+    args, kwargs = truncate(shape_b, DIVERGENCE_STEPS)
     g = string_chunked(*args, **kwargs)[2]["state_u"]
     r = string_chunked_reference(*args, **kwargs)[2]["state_u"]
     fin = ~torch.isnan(r)
     div = float((g[fin] - r[fin]).abs().max() / r[fin].abs().max())
-    print(f"[3] (b) after 2048 steps: max |kernel - plain| / max|plain| of "
+    print(f"[3] (b) after {DIVERGENCE_STEPS} steps: max |kernel - plain| / max|plain| of "
           f"state_u = {div:.3e} (recorded, not asserted)")
 
     # the width-bucketed launch: against its plain version and the unbucketed
@@ -3542,6 +3800,12 @@ def main():
     # ---- 21. the figures and a JAX run on the card's host ----------------------
     drive_phase21(train["over"] + ["proc.train=false"], card)
     print(f"[21] done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 22. the port alone; the profiling scopes; the tools -------------------
+    n, by_spec = drive_phase22(train["over"], dev, card)
+    launches["bucketed"] += n
+    add_gmres(gm_launches, by_spec)
+    print(f"[22] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 11-12. the rescue ladder ----------------------------------------------
     left = max(RUN_TARGET_S - (time.perf_counter() - t_start) - LADDER12_S, 30.0)

@@ -38,7 +38,7 @@ from torch_fdtd_string_tpu_torch.tools.make_splits import make_splits
 from torch_fdtd_string_tpu_torch.utils.config import compose as tcompose
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
+JAX_CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
 # four plucked strings of 50 ms, four kept pickup columns each, with the
 # modal baseline (ua-*.wav)
 CORPUS = ["experiment=nsynth-like", "task.num_samples=4", "task.batch_size=4",
@@ -66,7 +66,7 @@ def corpus(tmp_path_factory):
     """The port's fused corpus, split by the port's make_splits: 3 test
     strings, 1 valid.  Returns the load_dir."""
     root = tmp_path_factory.mktemp("dmsp_corpus")
-    tsim.run(tcompose(CONFIG_DIR, CORPUS), str(root / "corpus"), "pluck", 1)
+    tsim.run(tcompose(trun.CONFIG_DIR, CORPUS), str(root / "corpus"), "pluck", 1)
     counts = make_splits(str(root / NAME), valid_n=1, test_n=3)
     assert counts == {"train": 0, "valid": 1, "test": 3}
     return str(root)
@@ -82,7 +82,7 @@ def _table(path):
 
 def _variables(estimator, seed=1):
     """Perturbed flax variables of the small synth-dmsp model."""
-    jargs = jcompose(CONFIG_DIR, TEST + [f"model.mode_estimator={estimator}"])
+    jargs = jcompose(JAX_CONFIG_DIR, TEST + [f"model.mode_estimator={estimator}"])
     jm = jsynth.build_model(jargs)
     prep = synth_inputs(B=2, Nt=2400, n_modes=SMALL["n_modes"], block=SMALL["block_size"])
     args = [jnp.asarray(prep[k]) for k in ("xg", "tg", "ka", "al", "t60", "f_k", "c_k")]
@@ -97,7 +97,7 @@ def test_proc_test_matches_jax_evaluate(corpus, tmp_path, monkeypatch, estimator
     variables = _variables(estimator)
 
     jax_run = str(tmp_path / "jax")
-    jargs = jcompose(CONFIG_DIR, over)
+    jargs = jcompose(JAX_CONFIG_DIR, over)
     jargs.task.ckpt_dir = jax_run
     # the JAX TrainState's constants are every collection but params
     jtrainer.save_checkpoint(jax_run, jsynth.TrainState(
@@ -105,7 +105,7 @@ def test_proc_test_matches_jax_evaluate(corpus, tmp_path, monkeypatch, estimator
         with_opt=False)
     jtrainer.evaluate(jargs, jax_run)
 
-    targs = tcompose(CONFIG_DIR, over)
+    targs = tcompose(trun.CONFIG_DIR, over)
     model = load_jax_variables(tsynth.build_model(targs), variables)
     port_run = str(tmp_path / "port")
     ttrainer.save_checkpoint(port_run, model, 0)
@@ -168,7 +168,7 @@ def test_proc_test_serves_a_jax_run(corpus, tmp_path, monkeypatch):
         f.write("2\t0.5")
     os.makedirs(os.path.join(jax_run, "codes", "torch_fdtd_string_tpu"))
     ttrainer.save_checkpoint(str(tmp_path / "pt"), load_jax_variables(
-        tsynth.build_model(tcompose(CONFIG_DIR, over)), variables), 2)
+        tsynth.build_model(tcompose(trun.CONFIG_DIR, over)), variables), 2)
     tables = {}
     for name, ckpt in (("from_jax", jax_run), ("from_pt", str(tmp_path / "pt"))):
         trun.main(over + [f"task.ckpt_dir={ckpt}", f"task.root_dir={tmp_path}",
@@ -251,7 +251,7 @@ def test_make_splits_matches_the_root_tool(tmp_path, corpus):
 def test_checkpoint_round_trip_and_best_marker(tmp_path):
     """step_<n>.pt holds parameters and constants; the latest step wins,
     or the one a BEST marker names; a model of another width refuses it."""
-    args = tcompose(CONFIG_DIR, TEST)
+    args = tcompose(trun.CONFIG_DIR, TEST)
     a = tsynth.build_model(args, torch.Generator().manual_seed(1))
     b = tsynth.build_model(args, torch.Generator().manual_seed(2))
     run = str(tmp_path / "run")
@@ -270,7 +270,7 @@ def test_checkpoint_round_trip_and_best_marker(tmp_path):
         assert torch.equal(c.state_dict()[k], v), k
     ckpt = torch.load(best, weights_only=True)
     assert sorted(ckpt["constants"]) == ["estimator.rff.N", "rff.N"]
-    wider = tsynth.build_model(tcompose(CONFIG_DIR, TEST + ["model.embed_dim=16"]))
+    wider = tsynth.build_model(tcompose(trun.CONFIG_DIR, TEST + ["model.embed_dim=16"]))
     with pytest.raises(RuntimeError):
         ttrainer.load_checkpoint(best, wider)
 

@@ -37,7 +37,7 @@ from torch_fdtd_string_tpu_torch.tools.make_splits import make_splits
 from torch_fdtd_string_tpu_torch.utils.config import compose as tcompose
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
+JAX_CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
 SR = 48000
 CRITERIA = ["l1", "magspec", "melspec", "f0", "modefreq", "modeamps"]  # synth-dmsp's
 KEYS = ("xg", "tg", "ka", "al", "t60", "f_k", "c_k")
@@ -59,7 +59,7 @@ def corpus(tmp_path_factory):
     """The port's fused corpus split by the port's make_splits; returns
     the load_dir."""
     root = tmp_path_factory.mktemp("dmsp_train_corpus")
-    tsim.run(tcompose(CONFIG_DIR, CORPUS), str(root / "corpus"), "pluck", 1)
+    tsim.run(tcompose(trun.CONFIG_DIR, CORPUS), str(root / "corpus"), "pluck", 1)
     assert make_splits(str(root / NAME), valid_n=1, test_n=1) == {
         "train": 4, "valid": 1, "test": 1}
     return str(root)
@@ -93,7 +93,7 @@ def test_proc_train_matches_jax_train(corpus, tmp_path, monkeypatch):
 
     monkeypatch.setattr(jtrainer, "_init_state", capture)
     monkeypatch.setenv("FDTD_NO_MESH", "1")
-    jargs = jcompose(CONFIG_DIR, [o for o in over if o != "proc.train=true"])
+    jargs = jcompose(JAX_CONFIG_DIR, [o for o in over if o != "proc.train=true"])
     jax_dir = str(tmp_path / "jax")
     os.makedirs(jax_dir)
     jtrainer.train(jargs, jax_dir)
@@ -160,7 +160,7 @@ def test_resume_restores_optimizer_exactly(corpus, tmp_path):
     for tensor; without an optstate file the count is fast-forwarded to
     the step (the moments start at zero)."""
     over = TRAIN + [f"task.load_dir={corpus}", "proc.test=false"]
-    args = tcompose(CONFIG_DIR, over)
+    args = tcompose(trun.CONFIG_DIR, over)
     save_dir = str(tmp_path / "run")
     state = ttrainer.train(args, save_dir)
     saved = state.optimizer.state_dict()
@@ -187,7 +187,7 @@ def test_streaming_path_and_prefetch(corpus, tmp_path, monkeypatch):
     """A device-cache budget of 0 streams every batch through _prefetch:
     the same step count, no device cache; a worker's exception reaches the
     loop."""
-    args = tcompose(CONFIG_DIR, TRAIN + [f"task.load_dir={corpus}", "proc.test=false"])
+    args = tcompose(trun.CONFIG_DIR, TRAIN + [f"task.load_dir={corpus}", "proc.test=false"])
     save_dir = str(tmp_path / "stream")
     monkeypatch.setattr(ttrainer, "CACHE_GB", 0.0)
     state = ttrainer.train(args, save_dir)
@@ -419,7 +419,7 @@ def test_evaluate_delegates_to_snapshot_generation(tmp_path):
 def test_checkpoint_files_are_written_whole(tmp_path, monkeypatch):
     """save_checkpoint leaves no temporary file, and a failed write leaves
     no file of its step."""
-    args = tcompose(CONFIG_DIR, TRAIN)
+    args = tcompose(trun.CONFIG_DIR, TRAIN)
     model = tsynth.build_model(args, torch.Generator().manual_seed(1))
     opt, _, _ = toptim.build(model.parameters(), "radam", {"lr": 1e-3}, "noam", {})
     ttrainer.save_checkpoint(str(tmp_path), model, 7, opt)

@@ -12,7 +12,7 @@ import os
 import numpy as np
 import pytest
 
-from test_torch_simulate import CONFIG_DIR
+from test_torch_simulate import CONFIG_DIR, JAX_CONFIG_DIR
 from torch_fdtd_string_tpu.tasks import simulate as jsim
 from torch_fdtd_string_tpu.utils.config import compose as jcompose
 from torch_fdtd_string_tpu_torch.tasks import simulate as tsim
@@ -27,7 +27,8 @@ RUN = ["experiment=nsynth-like", "task.num_samples=2", "task.batch_size=2",
 def _run(tmp_path, tag, compose, sim, overrides):
     d = tmp_path / tag
     d.mkdir()
-    sim.run(compose(CONFIG_DIR, overrides), str(d), "random", 1)
+    configs = JAX_CONFIG_DIR if tag == "jax" else CONFIG_DIR
+    sim.run(compose(configs, overrides), str(d), "random", 1)
     return str(d)
 
 

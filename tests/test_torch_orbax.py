@@ -28,6 +28,7 @@ from test_torch_dmsp_modules import (PHASE_FREE_BOUND, SMALL, UT_BOUND, fix_nois
                                      perturb, rel_err, synth_inputs)
 from torch_fdtd_string_tpu.models import synthesizer as jsyn
 from torch_fdtd_string_tpu.tasks import trainer as jtrainer
+from torch_fdtd_string_tpu_torch.models import optim as toptim
 from torch_fdtd_string_tpu_torch.models import synthesizer as tsyn
 from torch_fdtd_string_tpu_torch.models.convert import load_orbax
 from torch_fdtd_string_tpu_torch.tasks import trainer as ttrainer
@@ -103,7 +104,9 @@ def test_latest_checkpoint_finds_the_jax_layout(jax_run, tmp_path):
     """The latest step directory, the one BEST names, the flat
     ``checkpoints/`` layout; not orbax's temporary directories nor a
     ``.pt`` being written; of a ``.pt`` and a directory of one step the
-    ``.pt``; resuming a JAX run is refused."""
+    ``.pt``; a JAX run saved without its optimizer state resumes from its
+    latest step with the optimizer's count fast-forwarded (its optax state
+    is ``tests/test_torch_resume_jax.py``)."""
     ck = jtrainer._ckpt_dir(jax_run.dir)
     assert ttrainer.latest_checkpoint(jax_run.dir) == os.path.join(ck, "step_12")
     flat = tmp_path / "flat"
@@ -115,8 +118,14 @@ def test_latest_checkpoint_finds_the_jax_layout(jax_run, tmp_path):
     assert ttrainer.latest_checkpoint(str(flat)) == str(flat / "checkpoints" / "step_5.pt")
     (flat / "checkpoints" / "BEST").write_text("5\t1.0")
     assert ttrainer.latest_checkpoint(str(flat), prefer_best=True).endswith("step_5.pt")
-    with pytest.raises(NotImplementedError, match="resuming a JAX run"):
-        ttrainer.restore(jax_run.dir, tsyn.Synthesizer(**SMALL), None)
+    model, want = tsyn.Synthesizer(**SMALL), tsyn.Synthesizer(**SMALL)
+    optimizer = toptim.build(model.parameters(), "radam", {"lr": 1e-3}, "noam",
+                             {"warmup_steps": 1000})[0]
+    assert ttrainer.restore(jax_run.dir, model, optimizer) == 12
+    assert optimizer.count == 12 and not optimizer.state
+    ttrainer.load_checkpoint(os.path.join(ck, "step_12"), want)
+    for k, v in want.state_dict().items():
+        assert torch.equal(model.state_dict()[k], v), k
 
 
 def test_convert_tool_writes_strict_checkpoints(jax_run, tmp_path):

@@ -1,20 +1,17 @@
 """Parameter draws: one seed gives bit-identical bundles in both packages."""
 
 import dataclasses
-import os
 
 import numpy as np
 import pytest
 
 from torch_fdtd_string_tpu.core import params as jprm
+from torch_fdtd_string_tpu_torch import run as trun
 from torch_fdtd_string_tpu_torch.core import params as tprm
 from torch_fdtd_string_tpu_torch.tasks.simulate import task_kwargs
 from torch_fdtd_string_tpu_torch.utils.config import compose
 
-CONFIG_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "torch_fdtd_string_tpu", "configs",
-)
+CONFIG_DIR = trun.CONFIG_DIR
 
 
 def _draw(prm, model_name, precision, seed=1234, B=6, length=0.05):

@@ -27,12 +27,11 @@ import torch
 import bench
 from torch_fdtd_string_tpu.core.engine import SimConsts as JaxSimConsts
 from torch_fdtd_string_tpu.tasks import simulate as jsim
+from torch_fdtd_string_tpu_torch import run as trun
 from torch_fdtd_string_tpu_torch.core import engine as teng
 from torch_fdtd_string_tpu_torch.tasks import simulate as tsim
 from torch_fdtd_string_tpu_torch.utils.config import compose
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
 LENGTH = 0.005
 CORNER = (("f0_min", 300.0), ("f0_max", 320.0), ("f0_diff_max", 0.0),
           ("f0_mod_max", 0.0), ("kappa_min", 0.010), ("kappa_max", 0.012),
@@ -40,7 +39,7 @@ CORNER = (("f0_min", 300.0), ("f0_max", 320.0), ("f0_diff_max", 0.0),
 
 
 def _args(fuse):
-    args = compose(CONFIG_DIR, [
+    args = compose(trun.CONFIG_DIR, [
         "experiment=nsynth-like", "task.num_samples=4", "task.batch_size=4",
         f"task.length={LENGTH}", f"task.chunk_length={LENGTH}",
         "task.randomize_name=false", "proc.cpu=true", "task.rescue_nan=true",
@@ -184,13 +183,13 @@ def test_kernel_gmres_rerun_policy():
     nsynth-like (rescue_nan=false) takes no re-run, the default task does;
     CPU and double-precision runs never do."""
     card = SimpleNamespace(proc=SimpleNamespace(cpu=False))
-    gen = compose(CONFIG_DIR, ["experiment=nsynth-like"])
+    gen = compose(trun.CONFIG_DIR, ["experiment=nsynth-like"])
     assert gen.task.rescue_nan is False
     assert not tsim.kernel_gmres_rerun_enabled(gen.task, card)
-    ver = compose(CONFIG_DIR, [])
+    ver = compose(trun.CONFIG_DIR, [])
     assert ver.task.get("rescue_nan", True)
     assert tsim.kernel_gmres_rerun_enabled(ver.task, card)
     assert not tsim.kernel_gmres_rerun_enabled(
         ver.task, SimpleNamespace(proc=SimpleNamespace(cpu=True)))
-    dbl = compose(CONFIG_DIR, ["task.precision=double"])
+    dbl = compose(trun.CONFIG_DIR, ["task.precision=double"])
     assert not tsim.kernel_gmres_rerun_enabled(dbl.task, card)

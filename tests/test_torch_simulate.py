@@ -16,11 +16,13 @@ import pytest
 
 from torch_fdtd_string_tpu.tasks import simulate as jsim
 from torch_fdtd_string_tpu.utils.config import compose as jcompose
+from torch_fdtd_string_tpu_torch import run as trun
 from torch_fdtd_string_tpu_torch.tasks import simulate as tsim
 from torch_fdtd_string_tpu_torch.utils.config import compose as tcompose
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
+JAX_CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
+CONFIG_DIR = trun.CONFIG_DIR  # the port's own copy of the tree
 # the overrides test_pipeline.py::test_fused_preprocess_matches_classic runs
 BASE = [
     "experiment=nsynth-like", "task.num_samples=2", "task.batch_size=2",
@@ -31,10 +33,11 @@ BASE = [
 
 def _run_both(tmp_path, overrides):
     out = {}
-    for tag, compose, sim in (("jax", jcompose, jsim), ("torch", tcompose, tsim)):
+    for tag, compose, sim, configs in (("jax", jcompose, jsim, JAX_CONFIG_DIR),
+                                       ("torch", tcompose, tsim, CONFIG_DIR)):
         d = tmp_path / tag
         d.mkdir()
-        sim.run(compose(CONFIG_DIR, overrides), str(d), "pluck", 1)
+        sim.run(compose(configs, overrides), str(d), "pluck", 1)
         out[tag] = str(d)
     return out["jax"], out["torch"]
 

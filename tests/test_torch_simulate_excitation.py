@@ -16,7 +16,7 @@ import pytest
 import torch
 import yaml
 
-from test_torch_simulate import BASE, CONFIG_DIR, _bundles, _check_common, _items
+from test_torch_simulate import BASE, CONFIG_DIR, JAX_CONFIG_DIR, _bundles, _check_common, _items
 from torch_fdtd_string_tpu.tasks import simulate as jsim
 from torch_fdtd_string_tpu.utils.config import compose as jcompose
 from torch_fdtd_string_tpu_torch.tasks import simulate as tsim
@@ -32,10 +32,11 @@ TRACES = ("v_r_out", "F_H_out", "u_H_out")
 
 def _run_both(tmp_path, model_name, overrides):
     out = {}
-    for tag, compose, sim in (("jax", jcompose, jsim), ("torch", tcompose, tsim)):
+    for tag, compose, sim, configs in (("jax", jcompose, jsim, JAX_CONFIG_DIR),
+                                       ("torch", tcompose, tsim, CONFIG_DIR)):
         d = tmp_path / tag
         d.mkdir()
-        sim.run(compose(CONFIG_DIR, overrides), str(d), model_name, 1)
+        sim.run(compose(configs, overrides), str(d), model_name, 1)
         out[tag] = str(d)
     return out["jax"], out["torch"]
 

@@ -18,12 +18,13 @@ import numpy as np
 from chip_smoke import PREP_KEYS, PREP_KEYS_CORPUS
 from torch_fdtd_string_tpu.tasks import simulate as jsim
 from torch_fdtd_string_tpu.utils.config import compose as jcompose
+from torch_fdtd_string_tpu_torch import run as trun
 from torch_fdtd_string_tpu_torch.tasks import simulate as tsim
 from torch_fdtd_string_tpu_torch.utils import wav as wavio
 from torch_fdtd_string_tpu_torch.utils.config import compose as tcompose
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
+JAX_CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
 # the overrides of test_pipeline.py::test_fused_preprocess_matches_classic
 BASE = [
     "experiment=nsynth-like", "task.num_samples=2", "task.batch_size=2",
@@ -38,10 +39,11 @@ DRAWS = ("kappa", "alpha", "f0", "pos", "T60", "p_a", "target_f0", "x_B", "v_B",
 
 
 def _run(tag, tmp_path, overrides, iters=1):
-    compose, sim = {"jax": (jcompose, jsim), "torch": (tcompose, tsim)}[tag]
+    compose, sim, configs = {"jax": (jcompose, jsim, JAX_CONFIG_DIR),
+                             "torch": (tcompose, tsim, trun.CONFIG_DIR)}[tag]
     d = tmp_path / tag
     d.mkdir()
-    sim.run(compose(CONFIG_DIR, overrides), str(d), "pluck", iters)
+    sim.run(compose(configs, overrides), str(d), "pluck", iters)
     return str(d)
 
 
@@ -217,7 +219,7 @@ def test_host_path_when_width_spread_reaches_G(tmp_path, monkeypatch):
     monkeypatch.setattr(tsim, "POSTPROC_G", 0)  # every spread reaches it
     host_dir = tmp_path / "host"
     host_dir.mkdir()
-    tsim.run(tcompose(CONFIG_DIR, over), str(host_dir), "pluck", 1)
+    tsim.run(tcompose(trun.CONFIG_DIR, over), str(host_dir), "pluck", 1)
     host = str(host_dir)
     with open(os.path.join(host, "skip_stats.json")) as f:
         timing = json.load(f)["save_timing"]

@@ -55,13 +55,18 @@ def fourier_feature(x, B):
 
 class MLP(nn.Module):
     """n_layers x [Dense -> PReLU] (reference blocks.py:121-128), one PReLU
-    slope per layer."""
+    slope per layer.  The slopes, one flax leaf each in the JAX package
+    (``prelu_a_<i>``), are stacked in one parameter marked
+    ``stacked_leaves``, so that the layer-wise optimizer rules
+    (``models/optim.py``: LAMB's trust ratio, NovoGrad's second moment) take
+    each slope as a layer of its own, as optax does."""
 
     def __init__(self, in_dim, hidden, n_layers, generator):
         super().__init__()
         self.layers = nn.ModuleList(
             Dense(in_dim if i == 0 else hidden, hidden, generator) for i in range(n_layers))
         self.prelu = nn.Parameter(torch.full((n_layers,), 0.25))
+        self.prelu.stacked_leaves = True
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):

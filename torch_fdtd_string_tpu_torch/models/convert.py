@@ -14,7 +14,11 @@ the port has no place for, or a port entry no leaf fills, raises
 :func:`load_orbax` reads those two dicts from a checkpoint directory the
 JAX package's ``tasks/trainer.py::save_checkpoint`` writes with orbax
 (``step_<n>/``: ``_METADATA`` and an OCDBT key-value store of zarr
-arrays), through tensorstore alone; it imports neither jax nor orbax.
+arrays), through tensorstore alone (:func:`read_orbax`); it imports
+neither jax nor orbax.  :func:`optimizer_state_from_jax` carries the optax
+state of the sibling ``optstate_<n>/`` into the ``state_dict()`` of the
+port's optimizer (``models/optim.py``), so that the port resumes a JAX
+run.
 """
 
 from __future__ import annotations
@@ -160,32 +164,34 @@ def load_jax_variables(module, variables):
 CONVERT_TOOL = "python -m torch_fdtd_string_tpu_torch.tools.convert_orbax"
 
 
-def load_orbax(step_dir):
-    """The flax variables (``{"params": ..., "constants": ...}``, numpy) of
-    the JAX package's orbax checkpoint ``step_dir``, which holds the
-    ``params`` tree and, under ``constants``, every other collection (JAX
-    ``TrainState.constants``).  The tree's keys come from
-    ``_METADATA``'s ``tree_metadata``; each array is read from the
-    checkpoint's OCDBT store by tensorstore, as ``zarr3`` arrays when
-    ``use_zarr3`` is set, else ``zarr``.  Without tensorstore it raises an
-    ``ImportError`` naming the tool that converts such a run on a host that
-    has it."""
+def read_orbax(ckpt_dir):
+    """The tree an orbax checkpoint directory of the JAX package holds
+    (``step_<n>/`` or ``optstate_<n>/``), as nested dicts of numpy arrays:
+    a tuple's items under ``"0"``, ``"1"``, ..., a named tuple's under its
+    field names.  Leaves orbax stores no value for (an empty optax state)
+    are left out.  The keys come from ``_METADATA``'s ``tree_metadata``;
+    each array is read from the checkpoint's OCDBT store by tensorstore,
+    as ``zarr3`` arrays when ``use_zarr3`` is set, else ``zarr``.  Without
+    tensorstore it raises an ``ImportError`` naming the tool that converts
+    such a run on a host that has it."""
     try:
         import tensorstore as ts
     except ImportError as err:
         raise ImportError(
-            f"{step_dir} is a JAX (orbax) checkpoint, and reading it needs tensorstore, "
+            f"{ckpt_dir} is a JAX (orbax) checkpoint, and reading it needs tensorstore, "
             f"which this host lacks; convert the run on a host that has it with "
             f"`{CONVERT_TOOL} <jax run dir> <out run dir> [overrides]` "
-            "(tools/convert_orbax.py) and serve the converted run") from err
-    with open(os.path.join(step_dir, "_METADATA")) as f:
+            "(tools/convert_orbax.py) and use the converted run") from err
+    with open(os.path.join(ckpt_dir, "_METADATA")) as f:
         meta = json.load(f)
     if not meta.get("use_ocdbt", True):
-        raise ValueError(f"{step_dir}: only OCDBT checkpoints are read (the JAX package's)")
+        raise ValueError(f"{ckpt_dir}: only OCDBT checkpoints are read (the JAX package's)")
     array_format = "zarr3" if meta.get("use_zarr3") else "zarr"
-    kvstore = {"driver": "ocdbt", "base": "file://" + os.path.abspath(step_dir)}
+    kvstore = {"driver": "ocdbt", "base": "file://" + os.path.abspath(ckpt_dir)}
     tree = {}
     for entry in meta["tree_metadata"].values():
+        if (entry.get("value_metadata") or {}).get("skip_deserialize"):
+            continue
         keys = [str(k["key"]) for k in entry["key_metadata"]]
         spec = {"driver": array_format, "kvstore": kvstore, "path": ".".join(keys)}
         arr = np.asarray(ts.open(spec, open=True).result().read().result())
@@ -193,4 +199,75 @@ def load_orbax(step_dir):
         for k in keys[:-1]:
             node = node.setdefault(k, {})
         node[keys[-1]] = arr
+    return tree
+
+
+def load_orbax(step_dir):
+    """The flax variables (``{"params": ..., "constants": ...}``, numpy) of
+    the JAX package's orbax checkpoint ``step_dir``, which holds the
+    ``params`` tree and, under ``constants``, every other collection (JAX
+    ``TrainState.constants``); read by :func:`read_orbax`."""
+    tree = read_orbax(step_dir)
     return {"params": tree.get("params", {}), **tree.get("constants", {})}
+
+
+_PLATEAU = ("scale", "best_value", "plateau_count")
+
+
+def _optax_parts(node, out):
+    """The states of an optax chain's transformations, by kind: the
+    moments (``mu`` / ``nu`` of Adam's family, ``trace`` of SGD), every
+    update ``count`` and the plateau rule's state."""
+    if not isinstance(node, dict):
+        return out
+    if all(k in node for k in _PLATEAU):
+        out["plateau"] = {k: node[k] for k in _PLATEAU}
+        return out
+    if "count" in node and not isinstance(node["count"], dict):
+        out["counts"].append(int(node["count"]))
+    for key in ("mu", "nu", "trace"):
+        if key in node:
+            out["moments"][key] = node[key]
+    for key, val in node.items():
+        if key not in ("mu", "nu", "trace") and isinstance(val, dict):
+            _optax_parts(val, out)
+    return out
+
+
+def optimizer_state_from_jax(model, optimizer, opt_state, variables):
+    """The ``state_dict()`` of ``optimizer`` (a ``models/optim.py``
+    optimizer over ``model.parameters()``) that holds the JAX package's
+    optax state ``opt_state`` (the ``opt_state`` tree of an
+    ``optstate_<n>/`` checkpoint, :func:`read_orbax`) of the chain the port
+    mirrors, ``clip -> scaling -> schedule -> plateau``: each parameter's
+    moments (``mu`` and ``nu``, or SGD's ``trace``), carried like the
+    parameters (:func:`state_dict_from_jax`, which takes the run's
+    ``constants`` from ``variables``), the update count, and the plateau
+    rule's ``scale``, ``best_value`` and ``plateau_count`` (at the JAX
+    package's accumulation size of 1, its ``count`` and ``avg_value`` are
+    0 after every update).  A NovoGrad state (one second moment per flax
+    leaf, and no config offers NovoGrad) is refused."""
+    from .optim import NovoGrad
+
+    if isinstance(optimizer, NovoGrad):
+        raise ValueError("carrying a NovoGrad state is not ported: its second moments are one "
+                         "scalar per flax leaf, and no config offers NovoGrad")
+    parts = _optax_parts(opt_state, {"moments": {}, "counts": [], "plateau": None})
+    if len(set(parts["counts"])) > 1:
+        raise ValueError(f"the optax state's counts disagree: {parts['counts']}")
+    if (parts["plateau"] is None) != (optimizer.plateau is None):
+        raise ValueError("the optax state and the optimizer disagree on the plateau rule")
+    constants = {k: v for k, v in variables.items() if k != "params"}
+    moments = {key: state_dict_from_jax(model, {"params": tree, **constants})
+               for key, tree in parts["moments"].items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    sd = optimizer.state_dict()
+    sd["state"] = {i: {key: m[names[id(p)]] for key, m in moments.items()}
+                   for i, p in enumerate(params)}
+    count = parts["counts"][0] if parts["counts"] else 0
+    for group in sd["param_groups"]:
+        group["count"] = count
+    if parts["plateau"] is not None:
+        sd["plateau"] = {k: torch.as_tensor(v) for k, v in parts["plateau"].items()}
+    return sd

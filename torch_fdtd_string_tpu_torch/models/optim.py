@@ -271,6 +271,14 @@ class OptaxOptimizer(torch.optim.Optimizer):
         raise NotImplementedError
 
 
+def _leaf_norm(x, p):
+    """The norm of ``x`` over each layer of parameter ``p``, as optax takes
+    a layer: the whole tensor, or each element where ``p`` stacks scalar
+    leaves of the JAX package's tree (``p.stacked_leaves``, the MLP's PReLU
+    slopes)."""
+    return x.abs() if getattr(p, "stacked_leaves", False) else torch.linalg.vector_norm(x)
+
+
 def _ipow(base, n):
     """``base ** n`` for an int ``n`` by squaring, as XLA raises a float to
     an integer count: RAdam's rho differences large numbers near its
@@ -356,7 +364,7 @@ class Lamb(OptaxOptimizer):
     def _direction(self, p, g, state, group, t):
         b1, b2 = group["betas"]
         u = _adam_direction(g, state, b1, b2, group["eps"], t)[2] + group["weight_decay"] * p
-        p_norm, u_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        p_norm, u_norm = _leaf_norm(p, p), _leaf_norm(u, p)
         ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm),
                             p_norm / u_norm)
         return u * ratio
@@ -372,7 +380,7 @@ class NovoGrad(OptaxOptimizer):
 
     def _direction(self, p, g, state, group, t):
         b1, b2 = group["betas"]
-        sq = torch.linalg.vector_norm(g) ** 2
+        sq = _leaf_norm(g, p) ** 2
         # moments not yet in the state (a resume without saved state) are 0
         nu = sq if t == 1 else (1 - b2) * sq + b2 * state.get("nu", torch.zeros_like(sq))
         step = g / (torch.sqrt(nu) + group["eps"]) + group["weight_decay"] * p

@@ -14,6 +14,11 @@ import torch
 import torch.nn.functional as F
 
 
+def safe_log(x):
+    """``log(x + 1e-7)``."""
+    return torch.log(x + 1e-7)
+
+
 def upsample(signal, factor):
     """Linear interpolation along axis 1 by an integer factor (reference
     ddsp.py:62-66): torch's non-aligned linear interpolation

@@ -106,6 +106,10 @@ class KernelConsts(NamedTuple):
         return name + "-gmres" if self.gmres_rescue else name
 
 
+# the JAX package's backwards-compatible name (pallas_step.py:110)
+PluckKernelConsts = KernelConsts
+
+
 class _LaunchArgs(ctypes.Structure):
     """csrc/string_step.cu::LaunchArgs, field for field.  The kernel checks
     ``struct_size`` against its own ``sizeof`` and refuses a mismatch."""

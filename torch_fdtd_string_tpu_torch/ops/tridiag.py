@@ -5,6 +5,8 @@ the implicit scheme are tridiagonal, so no matrix is materialised: PCR solves
 every batch element's system in ``ceil(log2(M))`` data-parallel levels of
 shift-multiply-add.  Variable per-element sizes are handled by identity
 padding: rows beyond an element's live size are ``(0, 1, 0 | rhs=0)``.
+``toeplitz_tridiag_coeffs`` builds that layout for a Toeplitz system, and
+``dst_toeplitz_solve`` solves one in closed form.
 """
 
 from __future__ import annotations
@@ -77,6 +79,53 @@ def pcr_normalized(sub, diag, sup, rhs, levels):
         )
         s *= 2
     return d
+
+
+def dst_toeplitz_solve(a, b, c, n, rhs):
+    """Closed-form solve of the Toeplitz tridiagonal ``tridiag(a, b, c)`` of
+    live size ``n`` per element, in its sine eigenbasis (eigenvalues
+    ``b + (a + c) cos(k pi / (n + 1))``, eigenvectors ``sin(jk pi / (n + 1))``):
+    two batched products, exact where ``a == c``.  The reference ships it as
+    ``tridiagonal_inverse`` (misc.cpp:228-252, fdm.py:9-21) but keeps it off
+    the hot path, as the JAX package does; it serves spectral analysis and
+    the tests.
+
+    ``a``, ``b``, ``c``, ``n``: (B,); ``rhs``: (B, M), whose dtype the
+    solve takes.  Rows at or past ``n`` come back 0."""
+    B, M = rhs.shape
+    dtype, device = rhs.dtype, rhs.device
+    a, b, c, n = (torch.as_tensor(x, dtype=dtype, device=device) for x in (a, b, c, n))
+    j = torch.arange(1, M + 1, dtype=dtype, device=device)
+    nb = n[:, None]
+    k = j[None, :]
+    lam = b[:, None] + (a + c)[:, None] * torch.cos(k * math.pi / (nb + 1.0))
+    live = k <= nb
+    lam = torch.where(live, lam, torch.ones_like(lam))
+    V = torch.sqrt(2.0 / (nb + 1.0))[..., None] * torch.sin(
+        j[None, :, None] * j[None, None, :] * math.pi / (nb + 1.0)[..., None])
+    V = V * live[:, :, None] * live[:, None, :]
+    y = torch.einsum("bij,bj->bi", V, rhs * live) / lam
+    return torch.einsum("bij,bj->bi", V, y) * live
+
+
+def toeplitz_tridiag_coeffs(a, b, n, M, dtype=None):
+    """``(sub, diag, sup)`` of width ``M`` for each element's ``n x n``
+    symmetric Toeplitz tridiagonal ``tridiag(a, b, a)``, identity-padded
+    past row ``n``: the layout of :func:`tridiag_solve`.  ``a``, ``b``,
+    ``n``: (B,); ``dtype`` defaults to that of ``a`` and ``b``
+    promoted."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    dtype = dtype or torch.promote_types(a.dtype, b.dtype)
+    device = a.device
+    a, b = a.to(dtype), b.to(dtype)
+    n = torch.as_tensor(n, device=device)[:, None]
+    idx = torch.arange(M, dtype=dtype, device=device)[None, :]
+    live = idx < n
+    zero = torch.zeros((), dtype=dtype, device=device)
+    sub = torch.where((idx >= 1) & live, a[:, None], zero)
+    diag = torch.where(live, b[:, None], torch.ones((), dtype=dtype, device=device))
+    sup = torch.where(idx < n - 1, a[:, None], zero)
+    return sub, diag, sup
 
 
 def tridiag_matvec(sub, diag, sup, x):

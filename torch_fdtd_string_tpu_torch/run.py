@@ -3,14 +3,16 @@
     python -m torch_fdtd_string_tpu_torch.run experiment=nsynth-like \\
         task.num_samples=24
 
-Takes the same overrides as the JAX package's ``run.py`` and composes the
-same config tree (``torch_fdtd_string_tpu/configs``, read as YAML by file
-path).  Every ``proc.*`` branch is ported, in the JAX package's order:
-``proc.simulate`` (dataset generation, presets with
-``task.load_config=<dir>``), ``proc.evaluate`` and ``proc.summarize`` (the
-f0 scores of a simulation run, host numpy), ``proc.process_training_data``
-(a classic run into the DMSP layout), ``proc.train`` (the DMSP
-synthesizer's training) and ``proc.test`` (its scoring of a test split).
+Takes the same overrides as the JAX package's ``run.py`` and composes its
+own copy of the same config tree (``configs/`` in this package, read as
+YAML by file path), so that the package runs without the JAX package
+beside it; ``backup_code`` snapshots that tree with the code.  Every
+``proc.*`` branch is ported, in the JAX package's order: ``proc.simulate``
+(dataset generation, presets with ``task.load_config=<dir>``),
+``proc.evaluate`` and ``proc.summarize`` (the f0 scores of a simulation
+run, host numpy), ``proc.process_training_data`` (a classic run into the
+DMSP layout), ``proc.train`` (the DMSP synthesizer's training) and
+``proc.test`` (its scoring of a test split).
 The simulation, the preprocessing's modal bank, training and scoring run
 on the card unless ``proc.cpu=true``.
 
@@ -54,12 +56,13 @@ from torch_fdtd_string_tpu_torch.utils.config import compose, print_config
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PKG_DIR)
-CONFIG_DIR = os.path.join(ROOT, "torch_fdtd_string_tpu", "configs")
+CONFIG_DIR = os.path.join(PKG_DIR, "configs")
 
 
 def backup_code(src_dir, run_dir):
     """Snapshot the port's package into ``<run_dir>/codes/<package>``
-    (reference run.py:30-52), so a run records the code that produced it."""
+    (reference run.py:30-52), so a run records the code and the config
+    tree (``configs/``) that produced it."""
     exclude_dir = {"__pycache__", "build"}
     exclude_ext = {".png", ".jpg", ".pt", ".npz", ".ckpt", ".wav", ".so"}
     dst_root = os.path.join(run_dir, "codes", os.path.basename(src_dir))

@@ -137,13 +137,29 @@ def _time_engine(workload, device, reps=2):
         lambda: simulate_chunk(carry, steps, sp, bp, hp, bm, hm, consts), device, reps)
 
 
+def kernel_point(B, length, device, reps=3, sr=48000):
+    """One point of the batch and length sweeps (``tools/batch_sweep.py``,
+    ``tools/length_sweep.py``): ``pluck_chunked`` over the bench workload
+    at batch ``B`` and ``length`` seconds, the fastest of ``reps`` calls
+    after a warm-up, credited with the steps it runs (the workload's trimmed
+    to a multiple of 512)."""
+    workload = build_workload(B=B, length=length, seed=7, device=device)[0]
+    wall = _time_kernel(workload, device, reps)
+    steps = B * ((int(sr * length) - 2) // 512 * 512)
+    return {"B": B, "length_s": length, "audio_s_per_s": steps / sr / wall,
+            "string_steps_per_sec": steps / wall, "wall_s": wall, "backend": device.type,
+            "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                       else "cpu")}
+
+
 def sweep_device(device=None):
     """The sweep's device: the card unless ``device`` names another; raises
     when the card is asked for and there is none."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the time sweep runs on a CUDA card and torch finds "
-                           "none; pass device='cpu' to time the plain version")
+                           "none; pass device='cpu' (--cpu on the sweep tools' command "
+                           "lines) to time the plain version")
     return device
 
 

@@ -27,8 +27,9 @@ the checkpoints and ``BEST`` are rank 0's alone.  With ``task.plot``
 ``train`` draws each validation's first batch (``callbacks.plot_results``)
 and ``evaluate`` the first test batch's spectrograms, or with
 ``task.plot_test_video`` each test batch's state summary and video.
-``evaluate`` also serves a run the JAX package trained: its orbax
-checkpoints (``step_<n>/``) are read by ``models/convert.py``.
+``evaluate`` also serves a run the JAX package trained, and ``train``
+resumes one: its orbax checkpoints (``step_<n>/``, ``optstate_<n>/``) are
+read by ``models/convert.py``.
 """
 
 from __future__ import annotations
@@ -50,9 +51,11 @@ import torch
 from ..core import analytic
 from ..data.dataset import DataLoader, Testset, Trainset, _collate
 from ..models import optim as optlib
-from ..models.convert import load_orbax, state_dict_from_jax
+from ..models.convert import (load_orbax, optimizer_state_from_jax, read_orbax,
+                              state_dict_from_jax)
 from ..models.losses import build_loss_registry
 from ..models.objective import build_metric_registry
+from ..models.synthesizer import Synthesizer
 from ..parallel import mesh
 from ..utils.profiling import Timer
 from . import synthesize as S
@@ -220,6 +223,12 @@ def _prefetch(iterator, device, depth=2):
             for v in batch.values():
                 v.record_stream(current)
         yield batch
+
+
+def cache_tag(n_modes, block, sr, trim, x_stride):
+    """The ``<tag>`` of a split's host cache ``_prep_<split>_<tag>.npz``:
+    every setting that changes the prepared items."""
+    return f"{n_modes}_{block}_{sr}_{trim or 0}_x{x_stride}"
 
 
 def _build_host_cache(dataset, n_modes, block, sr, cache_path=None, drop=(), chunk=4096):
@@ -494,7 +503,7 @@ def train(args, save_dir):
     if cacheable:
         # every knob that changes the prepared item set is in the tag, so
         # that a host cache of another set is never gathered from
-        ctag = f"{model.n_modes}_{block}_{sr}_{trim or 0}_x{x_stride}"
+        ctag = cache_tag(model.n_modes, block, sr, trim, x_stride)
 
         def cache(ds, split):
             with prof.scope("device_cache"):
@@ -616,22 +625,26 @@ def train(args, save_dir):
 
 
 def restore(save_dir, model, optimizer):
-    """Load the run's latest checkpoint into ``model`` and its
-    ``optstate`` into ``optimizer`` (or fast-forward the optimizer's count
-    when there is none); returns the step."""
+    """Load the run's latest checkpoint into ``model`` and its optimizer
+    state into ``optimizer``: the port's ``optstate_<n>.pt``, or for a run
+    the JAX package trained (``step_<n>/``) its optax state in the sibling
+    ``optstate_<n>/`` (JAX trainer.py:86-103, ``models/convert.py``); where
+    there is none, the optimizer's count is fast-forwarded.  Returns the
+    step."""
     ckpt = latest_checkpoint(save_dir)
-    if os.path.isdir(ckpt):
-        raise NotImplementedError(
-            f"{ckpt} is a JAX (orbax) checkpoint: resuming a JAX run is not ported "
-            "(ROADMAP.md); tools/convert_orbax.py makes a run the port scores")
     step = load_checkpoint(ckpt, model)
     opt_path = _optstate_path(ckpt, step)
+    jax_opt_path = os.path.splitext(opt_path)[0]
     if os.path.isfile(opt_path):
         optimizer.load_state_dict(torch.load(opt_path, map_location="cpu", weights_only=True))
+    elif os.path.isdir(ckpt) and os.path.isdir(jax_opt_path):
+        optimizer.load_state_dict(optimizer_state_from_jax(
+            model, optimizer, read_orbax(jax_opt_path)["opt_state"], load_orbax(ckpt)))
     else:
         # the moments start at zero, but the schedule and the bias
-        # corrections go on from the step (JAX _fast_forward_opt_counts), so
-        # the learning rate applied is the schedule(step) logged
+        # corrections go on from the step, so the learning rate applied is
+        # the schedule(step) logged; the plateau rule's count stays (JAX
+        # _fast_forward_opt_counts sets it too: ROADMAP, reference faults)
         print(f"[trainer] WARNING: {opt_path} missing - optimizer moments reset; "
               f"fast-forwarding the optimizer's count to {step}")
         optimizer.set_count(step)
@@ -786,3 +799,53 @@ def evaluate(args, save_dir):
     print(f"[trainer] wrote scores for {len(out_rows)} items -> "
           f"{os.path.join(save_dir, 'score')}")
     return out_rows, mod_rows
+
+
+def dryrun_train_step(batch_size=8, device=None, shard=None):
+    """One tiny DMSP train step on constant inputs (JAX trainer.py:807-878):
+    the physics estimator at 8 modes, 9 bands, hidden 32, embed 16, block
+    256, 1024 samples, Adam at 1e-4, the losses ``l1`` and ``modeamps``,
+    through :func:`tasks.synthesize.make_train_step`.  Data parallel across
+    the ranks of the process group (``parallel/mesh.py``) when ``shard``,
+    by default when a group of several ranks is up: each rank takes its
+    rows of the batch.  Runs on the card unless ``device`` names another,
+    and raises where there is none.  Returns the losses as floats, and
+    raises ``FloatingPointError`` when the loss is not finite."""
+    if device is None and not torch.cuda.is_available():
+        raise RuntimeError("dryrun_train_step runs on a CUDA card and torch finds none; "
+                           "pass device='cpu' to run on the CPU")
+    device = mesh.local_device() if device is None else torch.device(device)
+    if shard is None:
+        shard = mesh.world_size() > 1
+    B, Nt, Nx, block, n_modes = batch_size, 1024, 64, 256, 8
+    n_frames = Nt // block + 1
+    model = Synthesizer(n_modes=n_modes, n_bands=9, hidden_dim=32, embed_dim=16,
+                        block_size=block, mode_estimator="physics",
+                        generator=torch.Generator().manual_seed(0)).to(device)
+    u_0 = np.zeros((B, 1, Nx), np.float32)
+    u_0[:, 0, 20] = 0.01
+    full = lambda shape, v: np.full(shape, v, np.float32)
+    prep = {
+        "xg": full((B, 1), 0.3),
+        "tg": np.tile(np.arange(Nt, dtype=np.float32) / 48000.0, (B, 1)),
+        "ka": full((B, 1), 0.02),
+        "al": full((B, 1), 2.0),
+        "t60": np.tile(np.array([[[1000.0, 20.0], [100.0, 18.0]]], np.float32), (B, 1, 1)),
+        "f_k": full((B, 1, n_modes), 0.03),
+        "c_k": full((B, 1, n_modes), 0.01),
+        "f_0": full((B, n_frames), 220.0),
+        "u_0": u_0,
+        "gt": full((B, Nt), 0.0),
+        "gt_f0": full((B, n_frames), 0.028),
+    }
+    optimizer, _, _ = optlib.build(model.parameters(), "adam", {"lr": 1e-4}, None, {})
+    rows = (mesh.shard_rows(B), B) if shard else None
+    step = S.make_train_step(model, optimizer, build_loss_registry(48000, Nt, sharded=shard),
+                             ["l1", "modeamps"], True, shard=rows)
+    state = S.TrainState(model, optimizer, 0, torch.Generator(device=device).manual_seed(2))
+    batch = S.to_device(mesh.shard_batch(prep, B) if shard else prep, device)
+    _, losses = step(state, batch)
+    out = {k: float(v) for k, v in losses.items()}
+    if not np.isfinite(out["loss"]):
+        raise FloatingPointError(f"dryrun_train_step: loss {out['loss']}")
+    return out

@@ -10,8 +10,8 @@ trace of the bucketed first pass at the bench workload.  ``ncu`` and
    (poison-only exits, surface integral, sweep cap 24) over the bench
    workload (``tasks/time_experiment.py::build_workload``, 1 s of audio) at
    B=16 and B=256: device time by kernel name, the window's wall and the
-   share of it with a kernel running (the chrome traces go to
-   ``out_dir``);
+   share of it with a kernel running (``utils/profiling.py::trace``; the
+   chrome traces go to ``out_dir/trace_b<B>/trace.json``);
 2. a per-phase cycle table from the instrumented build of
    ``csrc/string_step.cu`` (``-DSTRING_STEP_CLOCKS``, a library of its own,
    ``ops/string_kernel.py::CLOCKS_BUILD``): thread 0 of each CTA counts the
@@ -39,6 +39,7 @@ import torch
 
 from ..ops import string_kernel as sk
 from ..tasks.time_experiment import build_workload
+from ..utils import profiling
 
 T_PHASES = 256  # steps of each draw in the cycle table
 TRACE_SIZES = (16, 256)
@@ -203,19 +204,17 @@ def trace(B, device, out_dir, reps=2):
     """``torch.profiler`` over ``reps`` bucketed first passes of the bench
     workload at batch ``B`` (1 s): device microseconds by kernel name and
     the busy share (:func:`busy_share`)."""
-    from torch.profiler import ProfilerActivity, profile
-
     args, kw = bench_args(B, 1.0, device)
     hb = tuple(x.cpu().numpy() for x in args[:3])
     run = lambda: sk.string_chunked_bucketed(*args, host_bounds=hb, **kw)
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    trace_dir = os.path.join(out_dir, f"trace_b{B}")
+    with profiling.trace(trace_dir) as prof:
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    path = os.path.join(out_dir, f"trace_b{B}.json")
-    prof.export_chrome_trace(path)
+    path = os.path.join(trace_dir, "trace.json")
     by_name = {}
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total", None)

@@ -10,8 +10,9 @@ the reference's CREPE tracker (``src/utils/analysis/frequency.py:4-9``):
    peak nearest the YIN estimate, gated to ±3% of it.
 
 ``compute_harmonic_parameters(wav, sr)`` returns ``{"f0", "time"}`` with a
-10 ms hop, as CREPE does.  The batched on-device twin is
-``ops/postproc.py::yin_track``.
+10 ms hop, as CREPE does.  ``track_f0`` is vectorised over frames;
+``track_f0_loop`` (over ``yin_frame_f0``) is its frame-loop twin.  The
+batched on-device twin is ``ops/postproc.py::yin_track``.
 """
 
 from __future__ import annotations
@@ -47,6 +48,87 @@ def _refine_spectral(fr, f0_est, sr):
         np.abs(f_ref - f0_est) < 0.03 * np.maximum(f0_est, 1e-9)
     )
     return np.where(ok, f_ref, f0_est)
+
+
+def yin_frame_f0(frame, sr, fmin=32.0, fmax=2000.0, threshold=0.1):
+    """YIN pitch of one frame (float; 0.0 if unvoiced).  Coarse stage only
+    (no spectral refinement — the track functions apply that per frame)."""
+    n = len(frame)
+    tau_max = min(int(sr / fmin), n - 1)
+    tau_min = max(int(sr / fmax), 1)
+
+    # exact truncated-window difference function via Wiener-Khinchin,
+    # overlap-normalised so shrinking windows don't bias the dip search:
+    # d(tau) = (E[0..n-tau-1] + E[tau..n-1] - 2 acf(tau)) * n/(n-tau)
+    w = frame - frame.mean()
+    f = np.fft.rfft(w, 2 * n)
+    acf = np.fft.irfft(f * np.conj(f))[: tau_max + 1]
+    E = np.add.accumulate(w**2)
+    ar = np.arange(tau_max + 1)
+    term1 = E[n - 1 - ar]
+    term2 = E[-1] - np.concatenate([[0.0], E[:tau_max]])
+    d = (term1 + term2 - 2 * acf) * (n / (n - ar))
+    d[0] = 0.0
+
+    # cumulative mean normalised difference
+    cmndf = np.ones_like(d)
+    cum = np.add.accumulate(d[1:])
+    cmndf[1:] = d[1:] * np.arange(1, len(d)) / np.where(cum == 0, 1.0, cum)
+
+    tau = 0
+    for t in range(tau_min, tau_max):
+        if cmndf[t] < threshold:
+            while t + 1 < tau_max and cmndf[t + 1] < cmndf[t]:
+                t += 1
+            tau = t
+            break
+    if tau == 0:
+        t = int(np.argmin(cmndf[tau_min:tau_max])) + tau_min
+        tau = t
+
+    # subharmonic guard (track_f0 twin): prefer an equally deep dip at tau/2
+    t2 = int(np.clip(tau // 2, 1, tau_max - 1))
+    t2 = t2 - 1 + int(np.argmin(cmndf[t2 - 1 : t2 + 2]))
+    if t2 >= tau_min and cmndf[t2] < max(threshold, 1.15 * cmndf[tau]):
+        tau = t2
+
+    # parabolic interpolation of the RAW difference function around the dip
+    # (de Cheveigné step 5: interpolate d, not d' — the normalisation skews
+    # the minimum)
+    if 1 <= tau < len(d) - 1:
+        a, b, c = d[tau - 1], d[tau], d[tau + 1]
+        denom = a - 2 * b + c
+        if denom != 0:
+            tau = tau + 0.5 * (a - c) / denom
+    return sr / tau if tau > 0 else 0.0
+
+
+def track_f0_loop(wav, sr, hop_s=0.01, frame_s=0.064, fmin=32.0, fmax=2000.0,
+                  smooth=3, refine=True):
+    """Frame-loop YIN track: the twin :func:`track_f0` is held to (the
+    same algorithm and constants, one frame at a time)."""
+    wav = np.asarray(wav, np.float64)
+    hop = int(sr * hop_s)
+    frame = int(sr * frame_s)
+    n_frames = max(1, len(wav) // hop + 1)
+    pad = frame // 2
+    x = np.pad(wav, (pad, pad + frame))
+    f0 = np.zeros(n_frames)
+    for i in range(n_frames):
+        seg = x[i * hop : i * hop + frame]
+        if np.abs(seg).max() < 1e-8:
+            f0[i] = 0.0
+        else:
+            f0[i] = yin_frame_f0(seg, sr, fmin, fmax)
+    if smooth > 1 and n_frames >= smooth:
+        from scipy.signal import medfilt
+
+        f0 = medfilt(f0, smooth if smooth % 2 else smooth + 1)
+    if refine:
+        idx = (np.arange(n_frames) * hop)[:, None] + np.arange(frame)[None, :]
+        f0 = _refine_spectral(x[idx], f0, sr)
+    t = np.arange(n_frames) * hop_s
+    return f0, t
 
 
 def track_f0(wav, sr, hop_s=0.01, frame_s=0.064, fmin=32.0, fmax=2000.0,

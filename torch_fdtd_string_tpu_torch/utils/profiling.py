@@ -1,18 +1,55 @@
-"""Wall-clock scopes.
+"""Wall-clock scopes and profiler traces.
 
-Port of ``Timer`` from ``torch_fdtd_string_tpu/utils/profiling.py``: the
-named accumulating scopes whose summary ``tasks/trainer.py::train`` dumps
-to ``profile.json`` (the reference's Lightning "simple" profiler,
-trainer.py:68).  The JAX module's ``device_timer`` and ``trace`` are not
-ported (ROADMAP Queue 1 item 12).
+Port of ``torch_fdtd_string_tpu/utils/profiling.py``: ``Timer``, the named
+accumulating scopes whose summary ``tasks/trainer.py::train`` dumps to
+``profile.json`` (the reference's Lightning "simple" profiler,
+trainer.py:68); ``device_timer``, a wall-clock scope that waits for the
+card's queued work before it reads the clock (the reference times its
+batches with CUDA events and ``time.time``, simulate.py:278-331); and
+``trace``, a ``torch.profiler`` scope that writes a Chrome trace (open it
+in Perfetto or ``chrome://tracing``) where the JAX package writes a
+``jax.profiler`` trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict
+
+import torch
+
+
+@contextlib.contextmanager
+def device_timer(name, log=None, sync=True):
+    """Wall-clock a block; with ``sync``, once the card's queued work is
+    done (``torch.cuda.synchronize``, where this process uses CUDA).  The
+    seconds are appended to ``log[name]`` when ``log`` is given."""
+    t0 = time.perf_counter()
+    yield
+    if sync and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if log is not None:
+        log.setdefault(name, []).append(dt)
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """A ``torch.profiler.profile`` scope over the CPU and, where there is
+    one, the CUDA card; yields the profiler (``key_averages()`` by kernel)
+    and writes the Chrome trace ``<log_dir>/trace.json`` on exit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class Timer:
