@@ -41,9 +41,8 @@ Phases; any failure exits non-zero:
 10. the corpus recipe at B=48 (``tools/gen_watchdog.py``'s train split):
    8 kept columns per item, compact keys, no run-dir wavs, audio-s/s;
 11. the rescue ladder, fused: the corpus recipe with ``task.rescue_nan=true``
-   (B=48), at a length cut so that the f64 stage stays within about two
-   minutes (from a 256-step timing of the f64 rescue taken first, on the
-   host's CPU and, for the record, on the card): at least one first-pass
+   (B=48), at a length cut to 64 steps past the earliest NaN of a first
+   pass over the whole second: at least one first-pass
    NaN, the counter identity per batch, every item finite, every
    f64-rescued item through the host build;
 12. the rescue ladder, classic: ``model.excitation=null``, one batch of 24
@@ -162,8 +161,8 @@ Phases; any failure exits non-zero:
    draw with ``task.dump_draws=true task.rescue_nan=false`` (its poisoned
    strings skipped), one control; (e) ``dryrun_train_step`` on the card.
 
-Phases 13-22 run after phase 10 and before the ladder phases 11-12, whose
-length follows the time left.
+Phases 13-22 run after phase 10 and before the ladder phases 11-12, each
+of which runs 64 steps past its first pass's earliest NaN.
 
 Phase 2 also prints ptxas's registers and spills of every instance.
 Phase 3 adds the GMRES instances (``gmres_rescue=True``) against their
@@ -205,9 +204,13 @@ given (a directory holding the repository, e.g. an unpacked ``git archive``
 of another commit), each in a process of its own with that checkout's inputs
 and kernel: CUDA events over 20 calls of 256 steps, one line per checkout
 with the times in ms, the card's name and power limit and the checkout's
-ptxas report. Each process saves every output field of every case; the
-outputs of every checkout are then held bit for bit to the first's, the
-largest difference per case printed, and any difference exits non-zero. Give
+ptxas report (the kernel is rebuilt from each checkout's source); then each
+instance's registers and spill bytes per checkout, against the first
+checkout's. Each process saves every output field of every
+case; the outputs of every checkout are then held bit for bit to the
+first's, the largest difference per case printed. Any difference, an
+instance that spills more than in the first checkout, or a checkout
+without a ptxas report exits non-zero. Give
 two commits in turns (old, new, new, old) to compare them on one card.
 
 ``--sharded`` runs phases 1-2, phase 9's fused run and phase 18's corpus
@@ -299,7 +302,7 @@ REPLACES = {
 GMRES_REPLACES = "torch_fdtd_string_tpu/ops/pallas_step.py:624"
 # steps (q) and (r) run past the first pass's earliest NaN (check_rerun)
 RERUN_AFTER = 4
-# phases 11 and 12, the rescue ladder (task.length is set from the f64 timing)
+# phases 11 and 12, the rescue ladder (task.length is set by ladder_length)
 LADDER_FUSED = [o for o in CORPUS48 if not o.startswith("task.rescue_nan")] + [
     "task.rescue_nan=true"]
 # phase 12's draw: with proc.seed=97 the first pass poisons a plucked string
@@ -311,12 +314,8 @@ LADDER_FUSED = [o for o in CORPUS48 if not o.startswith("task.rescue_nan")] + [
 LADDER_CLASSIC = ["experiment=nsynth-like", "task.fuse_preprocess=false",
                   "task.rescue_nan=true", "model.excitation=null",
                   "task.num_samples=24", "task.batch_size=24", "proc.seed=97"]
-# seconds the f64 stage of phases 11 and 12 may take, each, and the factor
-# on a 256-step timing of the first pass's NaN strings: a string can cost
-# more per step (more GMRES restarts) as it nears its divergence.  Each
-# gets less (30 s at least) when the run would not end by RUN_TARGET_S;
-# phase 11 leaves LADDER12_S for its own timings and phase 12
-F64_BUDGET_S, F64_SAFETY, RUN_TARGET_S, LADDER12_S = 120.0, 1.25, 1000.0, 150.0
+# steps phases 11 and 12 run past their first pass's earliest NaN
+LADDER_PAST = 64
 # NVIDIA H100 SXM data sheet: HBM rate, float32 rate outside the tensor cores
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12
 # float operations per live grid point, counted in csrc/string_step.cu: the
@@ -1281,14 +1280,11 @@ def ptxas_report(log):
     return out
 
 
-def ladder_length(phase, overrides, dev, card, budget_s, on_card=False):
+def ladder_length(phase, overrides, dev, card):
     """The ``task.length`` of a ladder phase: the first pass over the
-    config's whole length finds the NaN strings; 256 steps of their f64
-    rescue are timed on the host's CPU (the ladder's own device) and, with
-    ``on_card``, for the record on the card (the same engine in float64);
-    the length is what ``budget_s`` buys on the CPU at F64_SAFETY times
-    that rate, or 64 steps past the earliest NaN if that is longer and at
-    most twice as long, and never longer than the config's."""
+    config's whole length finds the NaN strings, and the phase runs
+    LADDER_PAST steps past the earliest NaN, never longer than the
+    config's.  The length follows the draw alone, not the host's speed."""
     from torch_fdtd_string_tpu_torch.ops.string_kernel import string_chunked_bucketed
     from torch_fdtd_string_tpu_torch.tasks import simulate
 
@@ -1303,26 +1299,11 @@ def ladder_length(phase, overrides, dev, card, budget_s, on_card=False):
               f"length stays {task.length:g} s")
         return float(task.length)
     first_nan = int(nan[torch.as_tensor(rows, device=dev)].float().argmax(dim=1).min()) + 2
-    t0 = time.perf_counter()
-    simulate.rescue_nan_elements(string, bow, hammer, bm, hm, rows, consts, 258, 258, SR)
-    per_step = (time.perf_counter() - t0) / 256
-    note = ""
-    if on_card:
-        t0 = time.perf_counter()
-        simulate.process_engine(
-            *simulate.rescue_inputs(string, bow, hammer, bm, hm, rows, consts), 258, 258,
-            dev, collect_state=consts.collect_state)
-        torch.cuda.synchronize()
-        note = (f", {(time.perf_counter() - t0) / 256 * 1e3:.1f} ms per step on the "
-                f"card (float64, same engine)")
-    budget = int(budget_s / (F64_SAFETY * per_step))
-    steps = min(Nt, max(budget, first_nan + 64) if first_nan + 64 <= 2 * budget else budget)
+    steps = min(Nt, first_nan + LADDER_PAST)
     length = steps / SR
     print(f"[{phase}] first pass over {task.length:g} s: NaN strings {rows.tolist()}, "
-          f"the earliest at step {first_nan}; f64 rescue of these {len(rows)} strings: "
-          f"{per_step * 1e3:.1f} ms per step on the host's CPU{note}, 256 steps timed; "
-          f"budget {budget_s:.0f} s; task.length cut to {length:g} s ({steps} steps) "
-          f"[{card}]")
+          f"the earliest at step {first_nan}; task.length cut to {length:g} s ({steps} "
+          f"steps) [{card}]")
     return length
 
 
@@ -3419,6 +3400,10 @@ def ab_times(root, out_path):
     from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
 
     dev = torch.device("cuda")
+    # built anew from the checkout's source, so that ptxas reports on it
+    lib = os.path.join(build.BUILD_DIR, "libstring_step.so")
+    if os.path.exists(lib):
+        os.remove(lib)
     build.load_kernel_library("string_step")
     report = {name: " | ".join(lines)
               for name, lines in ptxas_report(build.build_log.get("string_step", "")).items()}
@@ -3443,9 +3428,44 @@ def ab_times(root, out_path):
         for key, x in fields.items():
             saved[f"{tag}/{key}"] = x.cpu().numpy()
         times[tag] = cs.cuda_ms(fn, reps=20)
+    saved["ptxas"] = np.array(json.dumps(report))
     np.savez(out_path, **saved)
     print(f"[ab] {root}: {json.dumps(times)} [{cs.smi()}]", flush=True)
     print(f"[ab] {root} ptxas: {json.dumps(report)}", flush=True)
+
+
+def spill_bytes(lines):
+    """Registers and spill bytes (stores plus loads) of one instance's
+    ptxas lines."""
+    import re
+
+    text = " ".join(lines)
+    regs = re.search(r"Used (\d+) registers", text)
+    spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", text))
+    return (int(regs.group(1)) if regs else None), spills
+
+
+def ab_ptxas(roots, paths):
+    """Each instance's registers and spill bytes per checkout, from the
+    saved ptxas reports.  Returns False if a checkout has no report, or a
+    later one spills more than the first in an instance the first has."""
+    reports = [json.loads(str(np.load(path)["ptxas"])) for path in paths]
+    if not all(reports):
+        print(f"[ab] ptxas: no report from {[r for r, p in zip(roots, reports) if not p]}")
+        return False
+    more = []
+    for name in sorted(set().union(*reports)):
+        cells = [spill_bytes(r[name].split(" | ")) if name in r else (None, None)
+                 for r in reports]
+        print(f"[ab] ptxas {name}: " + ", ".join(
+            f"{os.path.basename(root) or root} {regs} registers, {sp} spill bytes"
+            for root, (regs, sp) in zip(roots, cells)))
+        first = cells[0][1]
+        if first is not None and any(sp is not None and sp > first for _, sp in cells[1:]):
+            more.append(name)
+    print("[ab] ptxas: " + (f"instances spilling more than in {roots[0]}: {more}" if more
+                            else f"no instance spills more than in {roots[0]}"))
+    return not more
 
 
 def ab_compare(roots, paths):
@@ -3463,6 +3483,8 @@ def ab_compare(roots, paths):
             continue
         worst = {}
         for key in ref.files:
+            if key == "ptxas":
+                continue
             a, b = ref[key], got[key]
             if a.shape != b.shape:
                 print(f"[ab] {root} {key}: shape {b.shape} against {a.shape}")
@@ -3526,8 +3548,13 @@ def main():
                 # imported; a failed build or launch fails the whole call
                 subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-one",
                                 root, path], check=True, cwd=root)
+            spills = ab_ptxas(roots, paths)
             if not ab_compare(roots, paths):
                 print("[ab] the checkouts' outputs differ", file=sys.stderr)
+                return 1
+            if not spills:
+                print("[ab] an instance spills more than in the first checkout",
+                      file=sys.stderr)
                 return 1
         print("[ab] every saved output equal bit for bit across the checkouts")
         return 0
@@ -3808,16 +3835,14 @@ def main():
     print(f"[22] done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 11-12. the rescue ladder ----------------------------------------------
-    left = max(RUN_TARGET_S - (time.perf_counter() - t_start) - LADDER12_S, 30.0)
-    length = ladder_length(11, LADDER_FUSED, dev, card, min(F64_BUDGET_S, left), on_card=True)
+    length = ladder_length(11, LADDER_FUSED, dev, card)
     lad = drive_fused(11, "rescue ladder, corpus recipe B=48 (fused)",
                       LADDER_FUSED + [f"task.length={length}"], PREP_KEYS_CORPUS, 8, card)
     check_ladder(11, lad["stats"]["batches"], lad["task"], lad["wall"], card,
                  need_nan=True)
     add_gmres(gm_launches, lad["by_spec"])
 
-    left = max(RUN_TARGET_S - (time.perf_counter() - t_start) - 60.0, 30.0)
-    length = ladder_length(12, LADDER_CLASSIC, dev, card, min(F64_BUDGET_S, left))
+    length = ladder_length(12, LADDER_CLASSIC, dev, card)
     _, lad = drive(12, "rescue ladder, model.excitation=null B=24 (classic)",
                    LADDER_CLASSIC + [f"task.length={length}"], "mix", card)
     check_ladder(12, lad["stats"], lad["task"], lad["wall"], card, need_nan=True)
