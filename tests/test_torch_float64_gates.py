@@ -1,0 +1,159 @@
+"""The float32 string step held to its float64 plain version, and the
+``chip_smoke.py --ab --float64`` comparator.
+
+Draw (a) is ``chip_smoke.bench_inputs(4, 0.02, 7)``, the bench workload at
+seed 7, over 256 steps; the JAX test of the fixed sweep schedule
+(tests/test_pallas_kernel.py:219-246) draws the same workload at seed 11.
+On the CPU ``string_chunked`` runs the plain version; its float64 run is the
+same call on the float32 inputs cast to float64.  chip_smoke.py phase 3 (t)
+holds the card's kernel to that float64 run by the same functions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """The adaptive and fixed-2 results of draws (a) and seed 11, float32
+    and float64: ``{(seed, dtype, coupling_fixed): (uout, zout, aux)}``."""
+    out = {}
+    for seed in (7, 11):
+        inputs = cs.truncate(cs.bench_inputs(4, 0.02, seed, CPU), 256)
+        for dtype in (torch.float32, torch.float64):
+            args, kw = cs.cast_inputs(inputs, dtype)
+            for n in (0, 2):
+                out[seed, dtype, n] = sk.string_chunked(*args, **dict(kw, coupling_fixed=n))
+    return out
+
+
+@pytest.mark.parametrize("fixed", [0, 2], ids=["adaptive", "fixed2"])
+def test_float32_within_f32_bounds_of_float64(runs, fixed):
+    """Draw (a): the float32 final state within STATE_ATOL (1.2e-5) and
+    STATE_REL (6e-4) of the float64 scale, uout within READOUT_REL (2e-4) of
+    it, the bounds of tests/test_pallas_kernel.py:53-58 that phase 3 (t)
+    holds the card to.  Readings on the CPU: adaptive 2.95e-6 / 2.25e-4
+    of scale and uout 1.37e-4; fixed-2 4.03e-6 / 3.07e-4 and uout
+    1.955e-4."""
+    s_err, s_scale, u_err, u_scale = cs.float64_distance(
+        runs[7, torch.float32, fixed], runs[7, torch.float64, fixed])
+    assert s_err <= cs.STATE_ATOL and s_err <= cs.STATE_REL * s_scale, (s_err, s_scale)
+    assert u_err <= cs.READOUT_REL * u_scale, u_err / u_scale
+
+
+def test_exact_fixed_gap_on_seed_7_is_over_the_twin_bound(runs):
+    """Why phase 3 (t) holds two fixed sweeps against the adaptive schedule
+    on seed 11 and not on draw (a): in float64 the final states of seed 7
+    part by 2.170e-4 of scale, over the 2e-4 bound, so no rounding of a
+    float32 kernel is held to anything there; on seed 11, the JAX test's
+    draw, float64 reads 1.589e-5 and float32 3.880e-5."""
+    gap7 = cs.fixed_gap(runs[7, torch.float64, 0], runs[7, torch.float64, 2])
+    assert gap7[0] > cs.FIXED_STATE_REL, gap7
+    assert gap7[2] == 4
+    for dtype in (torch.float64, torch.float32):
+        state, uout, n = cs.fixed_gap(runs[11, dtype, 0], runs[11, dtype, 2])
+        assert n == 4
+        assert state < cs.FIXED_STATE_REL and uout < cs.FIXED_UOUT_REL, (dtype, state, uout)
+
+
+def _case(rng, B=4, T=16, M=8, excited=False):
+    """A synthetic case's float64 fields: uout, zout, state and carry."""
+    f = {"uout": rng.standard_normal((B, T)), "zout": 1e-3 * rng.standard_normal((B, T)),
+         "state_u": rng.standard_normal((T, B, M)), "state_z": rng.standard_normal((T, B, M))}
+    for key in ("u1", "u2", "z1", "z2"):
+        f[key] = 1e-3 * rng.standard_normal((B, M))
+    if excited:
+        f.update(v_r=rng.standard_normal((B, T)), F_H=rng.standard_normal((B, T)),
+                 u_H=rng.standard_normal((B, T)))
+    return f
+
+
+def _off(fields, by, rng):
+    """The fields, each moved by ``by[key]`` times a random sign, as float32."""
+    return {key: (x + by.get(key, 0.0) * rng.choice([-1.0, 1.0], x.shape)).astype(np.float32)
+            for key, x in fields.items()}
+
+
+def _bound(key, x64, gmres=False):
+    _, rows, _ = cs.float64_case(x64, x64, x64, gmres)
+    return dict((k, b) for k, _, _, b, _ in rows)[key]
+
+
+GATE_CASES = ["same_distance", "within_b", "past_b_uout", "past_b_carry_u1",
+              "past_b_carry_z2", "within_move", "past_move", "one_more_poisoned",
+              "one_fewer_poisoned", "zout_floor", "force"]
+
+
+@pytest.mark.parametrize("case", GATE_CASES)
+def test_float64_comparator(case):
+    """``float64_case`` on synthetic arrays: a later checkout as far from
+    float64 as the first passes, and one within b of the first's distance;
+    one further by more than b in uout or in a carry field of (u)'s
+    (u1, u2, z1, z2, held as state) fails, unless float64 itself moves by
+    more than that under a one-ulp change of the inputs, and then one
+    further by more than that move fails; one more poisoned string fails,
+    one fewer passes and is listed; an excited GMRES case's zout bound
+    follows ZOUT_FLOOR of uout's scale; F_H's is FORCE_REL of max(scale,
+    1)."""
+    rng = np.random.default_rng(3)
+    x64 = _case(rng, excited=case in ("zout_floor", "force"))
+    gmres = case == "zout_floor"
+    if case == "zout_floor":
+        x64["zout"] *= 1e-9  # below ZOUT_FLOOR of uout
+    elif case == "force":
+        x64["F_H"] *= 1e-3
+    first_by = {key: 0.5 * _bound(key, x64, gmres) for key in x64}
+    first = _off(x64, first_by, np.random.default_rng(4))
+    later, want, moves = first, True, None
+    if case == "within_b":
+        later = _off(x64, {key: 1.4 * v for key, v in first_by.items()},
+                     np.random.default_rng(5))
+    elif case.startswith("past_b"):
+        key = {"past_b_uout": "uout", "past_b_carry_u1": "u1", "past_b_carry_z2": "z2"}[case]
+        later = dict(first)
+        later[key] = first[key] + np.float32(2.5 * _bound(key, x64))
+        want = False
+    elif case in ("within_move", "past_move"):
+        # float64 moves 3 b in uout; the later checkout is 2.5 b or 3.5 b further
+        b = _bound("uout", x64)
+        moved = dict(x64, uout=x64["uout"] + 3.0 * b)
+        moves = cs.float64_moves(x64, moved)
+        assert moves["uout"] == pytest.approx(3.0 * b) and moves["zout"] == 0.0
+        by = 2.5 if case == "within_move" else 3.5
+        later = dict(first, uout=first["uout"] + np.float32(by * b))
+        want = case == "within_move"
+    elif case in ("one_more_poisoned", "one_fewer_poisoned"):
+        first["uout"][0, 5] = np.nan
+        later = dict(first, uout=first["uout"].copy())
+        (later if case == "one_more_poisoned" else first)["uout"][2, 7:] = np.nan
+        want = case == "one_fewer_poisoned"
+    elif case == "zout_floor":
+        b = _bound("zout", x64, gmres=True)
+        assert b == pytest.approx(cs.ZOUT_REL * cs.ZOUT_FLOOR * np.abs(x64["uout"]).max())
+        assert _bound("zout", x64) < 1e-3 * b  # without the floor: its own scale
+        later = dict(first, zout=(x64["zout"] + 0.9 * b).astype(np.float32))
+    elif case == "force":
+        b = _bound("F_H", x64)
+        assert b == pytest.approx(cs.FORCE_REL)
+        later = dict(first, F_H=(x64["F_H"] + 1.4 * b).astype(np.float32))
+    ok, rows, poisoned = cs.float64_case(x64, first, later, gmres, moves)
+    assert ok == want, (case, rows)
+    assert [r[0] for r in rows] == list(x64)
+    if case.endswith("poisoned"):
+        assert poisoned == [(2, case == "one_fewer_poisoned", case == "one_more_poisoned",
+                             True)]
+    else:
+        assert poisoned == []
+    if case == "same_distance":
+        assert all(e_a == e_c and m == 0.0 for _, e_a, e_c, _, m in rows)
+        rows_b = dict((k, b) for k, _, _, b, _ in rows)
+        for key in cs.STATE_FIELDS:
+            scale = np.abs(x64[key]).max()
+            assert rows_b[key] == pytest.approx(min(cs.STATE_ATOL, cs.STATE_REL * scale))
+        assert rows_b["uout"] == pytest.approx(cs.READOUT_REL * np.abs(x64["uout"]).max())

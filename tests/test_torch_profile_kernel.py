@@ -33,7 +33,11 @@ def test_phase_table_from_a_synthetic_buffer():
     """A (B, phases + 1) buffer as the instrumented kernel writes it: cycles
     per phase summed over T steps, then the sweep count.  The table is the
     mean per string-step, the shares sum to 1, the text lists the phases
-    that ran."""
+    that ran.  The phases are the one-warp kernel's: each system factored
+    once per step, then solved per sweep."""
+    assert sk.CLOCK_PHASES == ("step_start", "rhs", "factor_t", "solve_t", "stencil_tl",
+                               "factor_l", "solve_l", "stencil_lt", "exit_reduce",
+                               "readout", "excitation", "gmres")
     n = len(sk.CLOCK_PHASES)
     T, B = 8, 3
     counts = np.zeros((B, n + 1), np.int64)

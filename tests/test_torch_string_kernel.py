@@ -13,6 +13,7 @@ import torch
 import bench
 from torch_fdtd_string_tpu.ops.pallas_step import pluck_chunked
 from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
+from torch_fdtd_string_tpu_torch.ops import tridiag as td
 
 T = 256
 
@@ -130,6 +131,7 @@ def test_dispatch_counts_only_kernel_launches(workload):
 def test_padded_width_and_levels():
     assert sk.padded_width(172, 262) == 288
     assert sk.padded_width(3, 5) == 32
-    assert sk.pcr_levels(288) == 9 and sk.pcr_levels(256) == 8
-    assert sk.pcr_levels(32) == 5
+    # the partitioned solve's reduced system: two rows per lane of a warp,
+    # reached across by its PCR levels
+    assert 2 ** td.REDUCED_LEVELS == 2 * td.LANES == 64
 

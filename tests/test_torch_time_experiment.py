@@ -33,7 +33,8 @@ def test_build_workload_draws_equal_bench(bowed):
     """Same generator calls in the same order: every draw of the port's
     workload equals bench.build_workload's bit for bit."""
     want, B, length, want_host = bench.build_workload(B=3, length=0.01, seed=7, bowed=bowed)
-    got, B2, length2, got_host = te.build_workload(B=3, length=0.01, seed=7, bowed=bowed)
+    got, B2, length2, got_host = te.build_workload(B=3, length=0.01, seed=7, bowed=bowed,
+                                                     device="cpu")
     assert (B, length) == (B2, length2)
     for w_part, g_part in zip(want[:1] + want[2:7], got[:1] + got[2:7]):
         w_items = w_part._asdict().items() if hasattr(w_part, "_asdict") else [("", w_part)]
@@ -56,7 +57,7 @@ def test_pluck_chunked_matches_jax():
     import jax.numpy as jnp
 
     T = 128
-    workload, _, _, _ = te.build_workload(B=4, length=0.02, seed=7)
+    workload, _, _, _ = te.build_workload(B=4, length=0.02, seed=7, device="cpu")
     carry, _, sp, _, _, _, _, consts = workload
     arrays = [x.numpy() for x in (sp.f0[:, 2 : 2 + T], sp.kappa, sp.alpha, sp.pos, sp.T60,
                                   carry.u1, carry.u2, carry.z1, carry.z2)]
@@ -118,6 +119,17 @@ def test_sweep_and_probe_need_a_card(monkeypatch):
         te.run_sweep("unused")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         kt.run_timing()
+
+
+def test_build_workload_needs_a_card_unless_asked(monkeypatch):
+    """The workload lands on the card unless the caller names another
+    device: without a card it raises rather than build CPU tensors that
+    would run the plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        te.build_workload(B=2, length=0.01)
+    workload = te.build_workload(B=2, length=0.01, device="cpu")[0]
+    assert workload[2].f0.device.type == "cpu"
 
 
 def test_kernel_timing_reports_every_variant():

@@ -3,8 +3,12 @@
 PyTorch counterpart of ``torch_fdtd_string_tpu/ops/pallas_step.py``.  Each
 step solves the implicit theta-scheme for the coupled transverse (u) and
 longitudinal (z) displacement with adaptive damped block Gauss-Seidel
-sweeps, each sweep two masked PCR tridiagonal solves, and reads the
-output at the pickup or as the surface integral.
+sweeps, each sweep two tridiagonal solves, and reads the output at the
+pickup or as the surface integral.  The solves are partitioned
+(``ops/tridiag.py::partition_factor`` / ``partition_solve``): each string's
+live rows in 32 blocks, one per lane of the warp that solves them on the
+card, both systems factored once per step and every sweep's and the
+rescue's solves running the right-hand side only.
 
 :func:`string_chunked` dispatches on the device of its inputs:
 
@@ -52,7 +56,7 @@ import torch
 
 from . import stencils as st
 from .fdm import LN10_6
-from .tridiag import pcr_normalized
+from .tridiag import live_rows, partition_factor, partition_solve
 
 OMEGA_FLOOR = 0.0625  # under-relaxation floor of the adaptive sweeps
 M_HD_CLAMP = -0.01  # hammer displacement clamp (pallas_step.py:46)
@@ -61,8 +65,8 @@ GMRES_M = 16  # the rescue's Krylov dimension (csrc/string_step.cu::kGmresM)
 # the instrumented build of csrc/string_step.cu: library name, source,
 # defines; and its phase classes, in the order of the source's enum Phase
 CLOCKS_BUILD = ("string_step_clocks", "string_step", ("STRING_STEP_CLOCKS",))
-CLOCK_PHASES = ("step_start", "rhs", "pcr_t", "stencil_tl", "pcr_l", "stencil_lt",
-                "exit_reduce", "readout", "excitation", "gmres")
+CLOCK_PHASES = ("step_start", "rhs", "factor_t", "solve_t", "stencil_tl", "factor_l",
+                "solve_l", "stencil_lt", "exit_reduce", "readout", "excitation", "gmres")
 BOW_KEYS = ("x_b", "v_b", "F_b", "wid", "phi_0", "phi_1", "mask")
 HAMMER_KEYS = ("x_H", "w_H", "M_r", "alpha", "mask")
 
@@ -132,14 +136,10 @@ class _LaunchArgs(ctypes.Structure):
 
 
 def padded_width(M_t, M_l):
-    """Lane width of one string: max(M_t, M_l) rounded up to whole warps.
-    Lanes past a string's live grid hold identity rows and zeros."""
+    """Row width of one string: max(M_t, M_l) rounded up to whole warps,
+    the JAX kernel's lane width.  Rows past a string's live grid hold
+    identity rows and zeros."""
     return 32 * -(-max(M_t, M_l) // 32)
-
-
-def pcr_levels(width):
-    """PCR levels that reach across ``width`` rows: ceil(log2(width))."""
-    return max(1, (width - 1).bit_length())
 
 
 def _consts(*, k, theta_t, lambda_c, M_t, M_l, coupling_iters, surface_integral,
@@ -594,6 +594,35 @@ def _bucketed_reference(c, groups, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
     return uout, zout, aux
 
 
+GROUP_THREADS = 128  # csrc/string_step.cu::kThreads: the warpgroup of one string
+
+
+def _sum64(x):
+    """Row sums of ``x`` (B, W) in float64, in the kernel's order, rounded
+    once to ``x``'s dtype, ``(B, 1)``: the bow's sums and the rescue's inner
+    products, which feed back into the step.  As ``group_reduce`` in
+    ``csrc/string_step.cu`` adds them: each of the warpgroup's 128 threads
+    sums its rows ``i = tid + 128 r`` in turn, each warp's 32 partial sums
+    meet in a butterfly (lane ``l`` adds lane ``l ^ off``'s, ``off`` = 16,
+    8, 4, 2, 1), and the four warps' sums are added in warp order; so the
+    kernel and this version round alike."""
+    B, W = x.shape
+    R = -(-W // GROUP_THREADS)
+    rows = torch.nn.functional.pad(x.to(torch.float64), (0, R * GROUP_THREADS - W))
+    rows = rows.reshape(B, R, GROUP_THREADS)
+    acc = torch.zeros((B, GROUP_THREADS), dtype=torch.float64, device=x.device)
+    for r in range(R):
+        acc = acc + rows[:, r]
+    acc = acc.reshape(B, GROUP_THREADS // 32, 32)
+    lane = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lane ^ off]
+    total = acc[:, 0, 0]
+    for w in range(1, GROUP_THREADS // 32):
+        total = total + acc[:, w, 0]
+    return total.to(x.dtype)[:, None]
+
+
 def _sign(x):
     """``jnp.sign``: NaN stays NaN (``torch.sign`` maps it to 0)."""
     return torch.where(torch.isnan(x), x, torch.sign(x))
@@ -604,7 +633,6 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
     B, T = f0.shape
     dt, dev = f0.dtype, f0.device
     W = padded_width(c.M_t, c.M_l)
-    levels = pcr_levels(W)
     k, theta, lambda_c = c.k, c.theta_t, c.lambda_c
     inner_eps = 100.0 * float(torch.finfo(dt).eps)
     two_t = 2.0 * theta - 1.0
@@ -625,6 +653,12 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
     itf = it.to(dt)
     one = torch.ones((B, 1), dtype=dt, device=dev)
     zero = torch.zeros((B, 1), dtype=dt, device=dev)
+    # divisors as tensors on the inputs' device: a CUDA tensor divided by a
+    # Python number is multiplied by its reciprocal, where the kernel (and
+    # the CPU) divide
+    div_t = lambda x: torch.tensor(x, dtype=dt, device=dev)
+    k_d, lambda_d, M_t_sem_d, two_two_t_d = (div_t(x) for x in (
+        k, lambda_c, float(c.M_t_sem), 2.0 * (2.0 * theta - 1.0)))
 
     uout = torch.empty((B, T), dtype=dt, device=dev)
     zout = torch.empty((B, T), dtype=dt, device=dev)
@@ -639,13 +673,13 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
         uH1, uH2 = exc["uH1"], exc["uH2"]  # the uHs carry (pallas_step.py:176)
     if c.has_bow:  # spatial axis of the allocation (M_t_sem), not the bucket
         bmask, phi0, phi1 = exc["bmask"], exc["phi_0"], exc["phi_1"]
-        xax = (itf + 1.0) / c.M_t_sem
+        xax = (itf + 1.0) / M_t_sem_d
         in_mt = (it < c.M_t_sem).to(dt)
     if c.has_hammer:
         hmask = exc["hmask"]
         a_H = exc["alpha_H"]
-        w_H = exc["w_H"] / lambda_c
-        M_r = exc["M_r"] / lambda_c
+        w_H = exc["w_H"] / lambda_d
+        M_r = exc["M_r"] / lambda_d
 
     def interp_idx(n_in, n_out):
         denom = torch.clamp(n_out - 1.0, min=1.0)
@@ -671,7 +705,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
         KK = K * K
         h_1 = lambda_c * torch.sqrt(
             (g2 * k**2 + torch.sqrt(g4 * k**4 + 16.0 * KK * k**2 * two_t))
-            / (2.0 * two_t))
+            / two_two_t_d)
         N_t = torch.floor(1.0 / h_1)
         h_t = 1.0 / N_t
         h_2 = lambda_c * gamma * alpha * k
@@ -745,6 +779,10 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
         sub_l = torch.where((it >= 1) & (itf < n_l), a_l, zeros)
         diag_l = torch.where(itf < n_l, b_l, torch.ones_like(lam2))
         sup_l = torch.where(itf < (n_l - 1.0), a_l, zeros)
+        # factored once per step: every sweep's and the rescue's solves
+        # reuse them (the matrices depend on u^{n-1} only)
+        f_t = partition_factor(sub_t, diag_t, sup_t, live_rows(n_t, W))
+        f_l = partition_factor(sub_l, diag_l, sup_l, live_rows(n_l, W))
 
         # ---- RHS B w1 + C w2 (pallas_step.py:376-415) ----------------------
         iz1 = interp(z1, lt)
@@ -790,13 +828,13 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
             x_b, v_b, F_b = (exc[key][:, t : t + 1] for key in ("x_b", "v_b", "F_b"))
             wid_b = exc["wid"][:, t : t + 1] * h_t
             nmin1 = N_t - 1.0
-            ctr = x_b * nmin1 / c.M_t_sem
-            wd = wid_b * nmin1 / c.M_t_sem
+            ctr = x_b * nmin1 / M_t_sem_d
+            wd = wid_b * nmin1 / M_t_sem_d
             ind = _sign(torch.clamp(
                 -(xax - ctr - wd / 2.0) * (xax - ctr + wd / 2.0), min=0.0))
             rc = 0.5 * ind * (1.0 + torch.cos(2.0 * math.pi * (xax - ctr) / wd))
             rc = rc * in_mt
-            rc = rc / torch.sum(torch.abs(rc), dim=1, keepdim=True)
+            rc = rc / _sum64(torch.abs(rc))
         if c.has_hammer:
             tol_t = h_t ** c.relative_error
             eps_prof = (itf == torch.floor(exc["x_H"] * (N_t - 1.0))).to(dt)
@@ -813,7 +851,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
             v_rel = F_H = u_H = zero
             if c.has_bow:
                 du = (u1 - u2) if first else (u_c - u1)
-                v_rel = torch.sum(rc * (du / k - v_b), dim=1, keepdim=True)
+                v_rel = _sum64(rc * (du / k_d - v_b))
                 phi = _sign(v_rel) * (phi1 + (1.0 - phi1) * torch.exp(-phi0 * torch.abs(v_rel)))
                 G_B = -(k**2) * (rc / h_t) * (F_b * phi)
                 rhs = rhs + bmask * torch.nan_to_num(G_B)
@@ -828,11 +866,9 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
 
         def lin_sweep_z(z_c, rhs_u_s, rhs_z_s):
             """One Gauss-Seidel sweep from ``z_c`` (pallas_step.py:617-622)."""
-            u_g = pcr_normalized(sub_t, diag_t, sup_t,
-                                 -rhs_u_s - K_tl_from(interp(z_c, lt)), levels)
+            u_g = partition_solve(f_t, -rhs_u_s - K_tl_from(interp(z_c, lt)))
             iu = interp(lam * st.dxb(u_g, h_t), tl)
-            return u_g, pcr_normalized(sub_l, diag_l, sup_l,
-                                       -rhs_z_s - K_lt_from(iu), levels)
+            return u_g, partition_solve(f_l, -rhs_z_s - K_lt_from(iu))
 
         def rescue(live):
             """GMRES(m) on the z fixed point (I - G) z = c, G one RHS-free
@@ -853,8 +889,7 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
                     lambda v: v - lin_sweep_z(v, zmat, zmat)[1], cvec, live,
                     GMRES_M)
                 iters += n_it
-                u_lin = pcr_normalized(sub_t, diag_t, sup_t,
-                                       -rhs_p - K_tl_from(interp(z_sol, lt)), levels)
+                u_lin = partition_solve(f_t, -rhs_p - K_tl_from(interp(z_sol, lt)))
             u_fix = torch.where(relres <= 1e-3, u_lin, torch.full_like(u_lin, math.nan))
             return u_fix, z_sol, probes, iters
 
@@ -880,10 +915,9 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
                 u_H = torch.where(active, u_H_s, u_H)
             if sweep > 0:
                 K_tl = K_tl_from(interp(z_c, lt))
-            u_g = pcr_normalized(sub_t, diag_t, sup_t, -rhs_u - K_tl, levels)
+            u_g = partition_solve(f_t, -rhs_u - K_tl)
             iu = interp(lam * st.dxb(u_g, h_t), tl)
-            z_g = pcr_normalized(sub_l, diag_l, sup_l, -rhs_z - K_lt_from(iu),
-                                 levels)
+            z_g = partition_solve(f_l, -rhs_z - K_lt_from(iu))
             sweeps[t] += active[:, 0]
             if c.coupling_fixed:
                 u_c, z_c = u_g, z_g
@@ -937,8 +971,8 @@ def _reference(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2, exc)
                 h_w = hmask if c.has_hammer else 0.0
                 b_w = bmask if c.has_bow else 0.0
                 w_out = w_out * (1.0 + h_w + b_w)
-            u_out = torch.sum(u_n - u1s, dim=1, keepdim=True) * w_out / k
-            z_out = torch.sum(z_n - z1s, dim=1, keepdim=True) * w_out / k
+            u_out = torch.sum(u_n - u1s, dim=1, keepdim=True) * w_out / k_d
+            z_out = torch.sum(z_n - z1s, dim=1, keepdim=True) * w_out / k_d
         else:
             def pickup(x, N, h):
                 ri = 1.0 + torch.floor(N * pos)
@@ -999,7 +1033,8 @@ def _gmres_fp(op, cvec, live, m):
     ``iterations`` the ``(B,)`` Arnoldi count."""
     B = cvec.shape[0]
     col = lambda x: x[:, None]
-    beta = torch.sqrt(torch.sum(cvec * cvec, dim=1))
+    dot = lambda a, b: _sum64(a * b)[:, 0]  # the kernel's order-free sums
+    beta = torch.sqrt(dot(cvec, cvec))
     V = [cvec * col(_sdiv(torch.ones_like(beta), beta))]
     g = [beta] + [torch.zeros_like(beta)] * m
     cs, sn = [], []
@@ -1013,11 +1048,11 @@ def _gmres_fp(op, cvec, live, m):
         w = op(V[i])
         hcol = []
         for j in range(i + 1):  # modified Gram-Schmidt, in order
-            h = torch.sum(w * V[j], dim=1)
+            h = dot(w, V[j])
             w = w - col(h) * V[j]
             hcol.append(h)
         hcol.append(None)
-        hlast = torch.sqrt(torch.sum(w * w, dim=1))
+        hlast = torch.sqrt(dot(w, w))
         V.append(w * col(_sdiv(torch.ones_like(hlast), hlast)))
         for j in range(i):
             hj, hj1 = hcol[j], hcol[j + 1]
@@ -1085,7 +1120,10 @@ def _launch_cuda(c: KernelConsts, f0, kappa, alpha, pos, t60, u1, u2, z1, z2,
     whole-batch ``(uout, zout, aux)``, and write in place) and launch
     ``string_step``: once over the batch, or once per width group ``(W_g,
     rows)`` of ``groups``, each group on its own stream, joined to the
-    current stream before the outputs are returned.  With ``clocks``, a
+    current stream before the outputs are returned.  The kernel runs one
+    128-thread CTA per string with the shared memory its width ``W_g``
+    needs (``csrc/string_step.cu::launch``); a refused launch raises.  With
+    ``clocks``, a
     ``(B, len(CLOCK_PHASES) + 1)`` int64 tensor, launch the instrumented
     build instead, which writes its cycle and sweep counts there."""
     from . import build

@@ -38,14 +38,16 @@ from ..ops.string_kernel import pluck_chunked
 from ..utils import plot as uplot
 
 
-def build_workload(B=16, length=1.0, sr=48000, seed=7, bowed=False, device="cpu"):
+def build_workload(B=16, length=1.0, sr=48000, seed=7, bowed=False, device=None):
     """The default randomized pluck workload (or its all-bowed variant): the
     port's copy of the JAX package's ``bench.build_workload``, drawing from
     ``np.random.default_rng(seed)`` in the same order, so the two packages
     draw identical strings.  Returns ``((carry, steps, sp, bp, hp, bm, hm,
-    consts), B, length, host)``: float32 tensors on ``device``, ``steps``
-    the global step indices 2..Nt-1, ``host`` the draws' ``(f0, kappa,
-    alpha)`` as numpy arrays."""
+    consts), B, length, host)``: float32 tensors on ``device`` (the card
+    unless it names another, :func:`sweep_device`), ``steps`` the global
+    step indices 2..Nt-1, ``host`` the draws' ``(f0, kappa, alpha)`` as
+    numpy arrays."""
+    device = sweep_device(device)
     rng = np.random.default_rng(seed)
     k = 1.0 / sr
     f0_min, f0_max = 98.0, 440.0
