@@ -230,15 +230,22 @@ instance that spills more than in the first checkout, or a checkout
 without a ptxas report exits non-zero. Give
 two commits in turns (old, new, new, old) to compare them on one card.
 With ``--float64``, for a change of the kernel's rounding, the outputs are
-held instead to float64: the first checkout's process also runs each
-case's float64 plain version on the card (the same call, the float32
-inputs cast to float64), and for each case and saved field a later
-checkout may stand no further from it than the first checkout does plus
-the larger of phase 3's f32 bound for that field at the float64 field's
-scale and how far the float64 plain version itself moves when u1 and u2
-move by one float32 ulp (:func:`float64_case`), and may poison (a NaN in
-uout) no more strings in any case; e for both, the bound, that move, and
-each string poisoned on one side only are printed.  It
+held instead to float64, over AB_DRAWS draws of each case: its inputs and
+copies whose u1 and u2 move up by one float32 ulp at random entries, all
+stacked along the batch axis into one call (:func:`stacked_draws`).  Each
+checkout's process runs that call once; the first's also runs its
+float64 plain version on the card (the same call, the float32 inputs cast
+to float64) and hands it to the later processes.  For each case and saved
+field, e is a draw's largest distance from float64; a later checkout
+passes if, in the median draw, it lies further than the first checkout
+by no more than the larger of phase 3's f32 bound for that field at the
+float64 field's scale and float64's own median move under the
+perturbations (:func:`draw_rule`), and if it poisons (a NaN in uout) no
+more strings that float64 keeps finite over all draws
+(:func:`float64_rule`); the unperturbed e of both, both medians, that
+median difference, on how many draws the later lies further, the paired
+geometric-mean ratio, every draw's e and each string poisoned on one
+side only are printed.  It
 also fails a later checkout whose mean time over
 its runs is above the first's on (a), (b), (k), (l) or (u).
 
@@ -1397,6 +1404,37 @@ def ulp_perturbed(args, seed=1):
         up = torch.from_numpy(rng.random(tuple(x.shape)) < 0.5).to(x.device)
         out[i] = torch.where(up, torch.nextafter(x, torch.full_like(x, float("inf"))), x)
     return tuple(out)
+
+
+def stacked_draws(inputs, draws):
+    """A call's args and kwargs with ``draws`` copies of every per-string
+    input stacked along the batch axis: the inputs as given, then the args
+    of :func:`ulp_perturbed` at seeds 1 .. draws - 1 (the bow's, hammer's
+    and MMS amplitude's tensors repeated).  No string of the port depends
+    on its batch neighbours (every sweep, GMRES and hammer loop exits per
+    string), so block i of the stacked call's results is draw i's call."""
+    args, kwargs = inputs
+    B = args[0].shape[0]
+
+    def tile(x):
+        if not torch.is_tensor(x):
+            return x
+        if x.shape[0] != B:
+            raise ValueError(f"a keyword tensor of shape {tuple(x.shape)} in a batch of {B}")
+        return torch.cat([x] * draws)
+
+    copies = [args] + [ulp_perturbed(args, seed) for seed in range(1, draws)]
+    kwargs = {key: ({k: tile(x) for k, x in v.items()} if isinstance(v, dict) else tile(v))
+              for key, v in kwargs.items()}
+    return tuple(torch.cat(column) for column in zip(*copies)), kwargs
+
+
+def stacked_groups(groups, B, draws):
+    """The width groups of a batch of ``B`` strings (:func:`bucket_groups`)
+    for its :func:`stacked_draws`: every copy of a string in its group, so
+    that each runs at its own call's width."""
+    return [(w, np.concatenate([np.asarray(rows, np.int64) + i * B for i in range(draws)]))
+            for w, rows in groups]
 
 
 def fixed_gap(adaptive, fixed):
@@ -3712,12 +3750,13 @@ def ab_inputs(cs, name, dev):
                              "corpus_mix": cs.CORPUS48 + cs.MIX}[name], dev)
 
 
-def ab_call(sk, call, args, kw, hb, plain=False):
+def ab_call(sk, call, args, kw, bucketing, plain=False):
     """A case's call ("flat", "bucketed" or "pluck_chunked") on ``args``,
-    ``kw``: the kernel, or with ``plain`` its plain version."""
+    ``kw``: the kernel, or with ``plain`` its plain version; ``bucketing``
+    holds the bucketed call's ``host_bounds`` or ``groups``."""
     if call == "bucketed":
         fn = sk.string_chunked_bucketed_reference if plain else sk.string_chunked_bucketed
-        return lambda: fn(*args, host_bounds=hb, **kw)
+        return lambda: fn(*args, **bucketing, **kw)
     if call == "pluck_chunked" and plain:
         return lambda: sk.string_chunked_reference(*args, gmres_rescue=True, **kw)
     fn = (sk.string_chunked_reference if plain else
@@ -3733,18 +3772,16 @@ def ab_fields(call, out):
     return dict(named_fields(out))
 
 
-def ab_times(root, out_path, float64=False):
+def ab_times(root, out_path, draws_dir=None, reference=False):
     """``--ab``'s run of one checkout, in a process of its own: the
     checkout's own chip_smoke inputs and string kernel.  Times every case
     of AB_CASES (CUDA events over 20 calls of 256 steps), saves every
     output field of each case to ``out_path`` (npz, ``tag/field``) with the
     times, and prints one line of times and the checkout's ptxas report.
-    With ``float64`` it also runs each case's float64 plain version on the
-    card (the same call on the inputs cast to float64) and saves its fields
-    as ``f64/tag/field``, with ``f64/tag/gmres`` whether the case runs the
-    GMRES instance; and the same on the inputs of :func:`ulp_perturbed`, as
-    ``f64p/tag/field``: how far float64 itself moves, which
-    :func:`float64_case` allows where it exceeds b."""
+    With ``draws_dir`` (``--float64``) it also runs each case once on its
+    :func:`stacked_draws` (:func:`ab_draws`); the first checkout
+    (``reference``) writes the float64 plain version's fields there for the
+    later checkouts."""
     sys.path.insert(0, root)
     os.chdir(root)
     import chip_smoke as cs
@@ -3760,29 +3797,79 @@ def ab_times(root, out_path, float64=False):
     report = {name: " | ".join(lines)
               for name, lines in ptxas_report(build.build_log.get("string_step", "")).items()}
     times, saved = {}, {}
-    for tag, name, over, call in AB_CASES:
-        args, kw = cs.truncate(ab_inputs(cs, name, dev), 256)
-        kw = dict(kw, **over)
-        if call == "pluck_chunked":
-            kw.pop("gmres_rescue")
-        hb = cs.host_bounds(args)
-        fn = ab_call(sk, call, args, kw, hb)
-        for key, x in ab_fields(call, fn()).items():
-            saved[f"{tag}/{key}"] = x.cpu().numpy()
+    for case in AB_CASES:
+        tag, _, _, call = case
+        args, kw, hb = ab_case(cs, case, dev)
+        fn = ab_call(sk, call, args, kw, dict(host_bounds=hb))
+        out = {key: x.cpu().numpy() for key, x in ab_fields(call, fn()).items()}
+        saved.update((f"{tag}/{key}", x) for key, x in out.items())
         times[tag] = cs.cuda_ms(fn, reps=20)
-        if float64:
-            for prefix, a in (("f64", args), ("f64p", ulp_perturbed(args))):
-                args64, kw64 = cast_inputs((a, kw), torch.float64)
-                out64 = ab_call(sk, call, args64, kw64, hb, plain=True)()
-                for key, x in ab_fields(call, out64).items():
-                    saved[f"{prefix}/{tag}/{key}"] = x.cpu().numpy()
-            saved[f"f64/{tag}/gmres"] = np.array(call == "pluck_chunked"
-                                                 or bool(kw.get("gmres_rescue", True)))
+        if draws_dir:
+            saved.update(ab_draws(sk, case, (args, kw), hb, out, draws_dir, reference))
     saved["ptxas"] = np.array(json.dumps(report))
     saved["times"] = np.array(json.dumps(times))
     np.savez(out_path, **saved)
     print(f"[ab] {root}: {json.dumps(times)} [{cs.smi()}]", flush=True)
     print(f"[ab] {root} ptxas: {json.dumps(report)}", flush=True)
+
+
+def ab_case(cs, case, dev, steps=256):
+    """One of AB_CASES through a checkout's chip_smoke module: its args and
+    keywords over ``steps`` steps, and the host bounds of its bucketing."""
+    _, name, over, call = case
+    args, kw = cs.truncate(ab_inputs(cs, name, dev), steps)
+    kw = dict(kw, **over)
+    if call == "pluck_chunked":
+        kw.pop("gmres_rescue")
+    return args, kw, cs.host_bounds(args)
+
+
+def ab_draws(sk, case, inputs, hb, unstacked, draws_dir, reference):
+    """``--ab --float64``'s run of one case: the kernel once on AB_DRAWS
+    :func:`stacked_draws` of ``inputs`` (a bucketed case's strings each in
+    its own call's width group, from the host bounds ``hb``), its first
+    draw held bit for bit to ``unstacked``, the case's own call.  The
+    ``reference`` process also runs the float64 plain version of the
+    stacked call and writes its fields to ``draws_dir``.  Returns the arrays to save: per field each
+    string's distance from float64 and whether it is finite
+    (:func:`string_errors`, ``e/tag/field`` and ``fin/tag/field``) and per
+    string whether uout has a NaN (``nan/tag``); from the reference, also
+    each field's b (:func:`field_bounds`, ``b/tag/field``), float64's own
+    move per perturbed draw (:func:`float64_moves`, ``move/tag/field``) and
+    its own poisoned strings (``nan64/tag``)."""
+    tag, _, _, call = case
+    B = inputs[0][0].shape[0]
+    args, kw = stacked_draws(inputs, AB_DRAWS)
+    bucketing = {}
+    if call == "bucketed":
+        groups = sk.bucket_groups(*hb, **{key: kw[key] for key in (
+            "k", "theta_t", "lambda_c", "M_t", "M_l")})
+        bucketing = dict(groups=stacked_groups(groups, B, AB_DRAWS))
+    got = {key: x.cpu().numpy()
+           for key, x in ab_fields(call, ab_call(sk, call, args, kw, bucketing)()).items()}
+    for key, x in unstacked.items():
+        if draw_block(key, got[key], 0, B).tobytes() != x.tobytes():
+            raise AssertionError(f"[ab] ({tag}) {key}: the stacked call's first draw is not "
+                                 "the call's result bit for bit")
+    saved = {}
+    if reference:
+        args64, kw64 = cast_inputs((args, kw), torch.float64)
+        x64 = {key: x.cpu().numpy() for key, x in ab_fields(
+            call, ab_call(sk, call, args64, kw64, bucketing, plain=True)()).items()}
+        gmres = call == "pluck_chunked" or bool(kw.get("gmres_rescue", True))
+        bounds = field_bounds({key: draw_block(key, x, 0, B) for key, x in x64.items()}, gmres)
+        moves = float64_moves(x64, AB_DRAWS)
+        for key, x in x64.items():
+            np.save(os.path.join(draws_dir, f"{tag}.{key}.npy"), x)
+            saved[f"b/{tag}/{key}"], saved[f"move/{tag}/{key}"] = np.array(bounds[key]), moves[key]
+        saved[f"nan64/{tag}"] = np.isnan(x64["uout"]).any(axis=1)
+        del x64
+    x64 = {key: np.load(os.path.join(draws_dir, f"{tag}.{key}.npy"), mmap_mode="r")
+           for key in got}
+    for key, (e, fin) in string_errors(x64, got).items():
+        saved[f"e/{tag}/{key}"], saved[f"fin/{tag}/{key}"] = e, fin
+    saved[f"nan/{tag}"] = np.isnan(got["uout"]).any(axis=1)
+    return saved
 
 
 def spill_bytes(lines):
@@ -3856,75 +3943,182 @@ def ab_compare(roots, paths):
 # --ab --float64: the fields held as state, and the draws held no slower
 STATE_FIELDS = ("state_u", "state_z", "u1", "u2", "z1", "z2")
 AB_SPEED_CASES = ("a", "b", "k", "l", "u")
+# --ab --float64's draws of each case: the unperturbed inputs and 16
+# ulp-perturbed copies.  The largest case, (v) at B=256, holds 115 MB of
+# float32 outputs per copy (256 steps of state at M_t + M_l = 434 lanes) and
+# 230 MB in float64: 2.0 GB and 3.9 GB on the card for 17 copies; the float64
+# fields of all cases, 8.8 GB, wait on disk for the later checkouts
+AB_DRAWS = 17
 
 
-def float64_moves(x64, moved):
+def batch_axis(key):
+    """The batch axis of a saved field: the second of the state's (T, B,
+    M), else the first."""
+    return 1 if key in ("state_u", "state_z") else 0
+
+
+def draw_block(key, x, i, B):
+    """Draw i's block of a stacked field: rows i B .. (i + 1) B of its
+    batch axis."""
+    return x[(slice(None),) * batch_axis(key) + (slice(i * B, (i + 1) * B),)]
+
+
+def float64_moves(x64, draws):
     """How far the float64 plain version itself moves when its inputs move
-    by one float32 ulp (:func:`ulp_perturbed`): per field of ``x64``, the
-    largest ``|moved - x64|`` over the entries finite in both."""
+    by one float32 ulp: per field of ``x64`` (``draws`` stacked draws, the
+    unperturbed first), for each perturbed draw i the largest
+    ``|x64_i - x64_0|`` over the entries finite in both."""
     out = {}
-    for key in x64:
-        r, m = (np.asarray(d[key], np.float64) for d in (x64, moved))
-        fin = np.isfinite(r) & np.isfinite(m)
-        out[key] = float(np.abs(m[fin] - r[fin]).max(initial=0.0))
+    for key, x in x64.items():
+        B = np.shape(x)[batch_axis(key)] // draws
+        r = np.asarray(draw_block(key, x, 0, B), np.float64)
+        moves = []
+        for i in range(1, draws):
+            m = np.asarray(draw_block(key, x, i, B), np.float64)
+            fin = np.isfinite(r) & np.isfinite(m)
+            moves.append(float(np.abs(m[fin] - r[fin]).max(initial=0.0)))
+        out[key] = np.array(moves)
     return out
 
 
-def float64_case(x64, first, later, gmres=False, moves=None):
-    """``--ab --float64``'s hold of one case.  ``x64``, ``first`` and
-    ``later`` map each saved field to its array: the float64 plain
-    version's, the first checkout's and a later checkout's; ``moves`` maps
-    a field to how far float64 itself moves under a one-ulp change of the
-    inputs (:func:`float64_moves`; none if not given).  For each field, e
-    is the largest ``|x - x64|`` over the entries finite in all three; the
-    later checkout passes if its e is at most the first's plus the larger
-    of that move and b, the absolute bound :func:`compare` applies to that
-    field at the float64 field's scale (readouts READOUT_REL of scale,
-    state the lesser of STATE_ATOL and STATE_REL of scale, F_H FORCE_REL of
-    max(scale, 1), an excited string's zout ZOUT_REL of its scale, held at
-    least ZOUT_FLOOR of uout's in a GMRES case): where float64 moves past
-    b, the inputs at float32's resolution do not fix the answer to within
-    b, and two roundings may part by as much as the answer moves.  It also
-    fails if the later checkout poisons (a NaN in uout) more strings than
-    the first.  Returns ``(ok, rows, poisoned)``: rows ``(field, e_first,
-    e_later, b, move)``, poisoned ``(string, first, later, float64
-    finite)`` for each string whose status differs."""
+def field_bounds(x64, gmres=False):
+    """b per field of one draw's float64 fields ``x64``: the absolute bound
+    :func:`compare` applies to that field at the float64 field's scale
+    (readouts READOUT_REL of scale, state the lesser of STATE_ATOL and
+    STATE_REL of scale, F_H FORCE_REL of max(scale, 1), an excited string's
+    zout ZOUT_REL of its scale, held at least ZOUT_FLOOR of uout's in a
+    GMRES case)."""
     finite_max = lambda x: float(np.abs(x[np.isfinite(x)]).max(initial=0.0))
     excited = "v_r" in x64
-    moves = moves or {}
-    rows = []
-    for key in [key for key in x64 if key in first and key in later]:
-        r, a, c = (np.asarray(d[key], np.float64) for d in (x64, first, later))
-        fin = np.isfinite(r) & np.isfinite(a) & np.isfinite(c)
-        e_a, e_c = (float(np.abs(x[fin] - r[fin]).max(initial=0.0)) for x in (a, c))
-        scale = finite_max(r)
+    out = {}
+    for key, x in x64.items():
+        scale = finite_max(np.asarray(x))
         if key in STATE_FIELDS:
-            b = min(STATE_ATOL, STATE_REL * scale)
+            out[key] = min(STATE_ATOL, STATE_REL * scale)
         elif key == "F_H":
-            b = FORCE_REL * max(scale, 1.0)
+            out[key] = FORCE_REL * max(scale, 1.0)
         elif key == "zout" and excited:
-            b = ZOUT_REL * max(scale, (ZOUT_FLOOR if gmres else 0.0) * finite_max(x64["uout"]))
+            floor = (ZOUT_FLOOR if gmres else 0.0) * finite_max(np.asarray(x64["uout"]))
+            out[key] = ZOUT_REL * max(scale, floor)
         else:
-            b = READOUT_REL * scale
-        rows.append((key, e_a, e_c, b, moves.get(key, 0.0)))
-    nan_rows = lambda d: np.isnan(np.asarray(d["uout"])).any(axis=1)
-    p_a, p_c, fin64 = nan_rows(first), nan_rows(later), ~nan_rows(x64)
-    poisoned = [(int(s), bool(p_a[s]), bool(p_c[s]), bool(fin64[s]))
-                for s in np.nonzero(p_a != p_c)[0]]
-    ok = (all(e_c <= e_a + max(b, m) for _, e_a, e_c, b, m in rows)
-          and bool(p_c.sum() <= p_a.sum()))
+            out[key] = READOUT_REL * scale
+    return out
+
+
+def string_errors(x64, got):
+    """Per field of both ``x64`` and ``got``: each string's largest
+    ``|got - x64|`` over the entries finite in both, and whether all of
+    ``got``'s entries of that string are finite; taken 64 strings at a
+    time, so that a stacked state field needs no whole-field temporaries."""
+    out = {}
+    for key in [key for key in x64 if key in got]:
+        axis = batch_axis(key)
+        n = np.shape(got[key])[axis]
+        e, fin = np.zeros(n), np.ones(n, bool)
+        for s0 in range(0, n, 64):
+            rows = (slice(None),) * axis + (slice(s0, s0 + 64),)
+            r, g = (np.moveaxis(np.asarray(d[key][rows], np.float64), axis, 0)
+                    .reshape(min(64, n - s0), -1) for d in (x64, got))
+            both = np.isfinite(r) & np.isfinite(g)
+            e[s0:s0 + 64] = np.where(both, np.abs(g - r), 0.0).max(axis=1, initial=0.0)
+            fin[s0:s0 + 64] = np.isfinite(g).all(axis=1)
+        out[key] = (e, fin)
+    return out
+
+
+def draw_errors(e, keep, draws):
+    """e per draw: the largest of its strings' errors ``e`` over those
+    ``keep`` holds (0 where it holds none)."""
+    return np.where(keep, e, 0.0).reshape(draws, -1).max(axis=1)
+
+
+def draw_rule(e_first, e_later, b, moves=()):
+    """``--ab --float64``'s rule for one field over the draws, which both
+    checkouts ran on the same inputs: the later checkout passes if the
+    median over the draws of how much further it lies than the first
+    (``shift``, the median of ``e_later - e_first``) is at most the larger
+    of b and float64's median move under the perturbations (``moves``).  A
+    loss of accuracy larger than b on most draws moves that median by more
+    than b; two equally accurate roundings, which one draw may part by more
+    than b, differ by as much either way.  Paired, the median does not jump
+    with the gaps between the draws' e, which exceed b where e lies far
+    past it (PERF.md).  Returns the verdict (``ok``), ``b``, that ``move``,
+    the ``shift``, both checkouts' unperturbed (first) draw's e (``e0``)
+    and their medians, on how many draws the later lies further
+    (``further`` of ``n``), the geometric mean of later / first over the
+    draws where both are non-zero (``ratio``) with the standard error of
+    its log (``se``), on how many draws each lies within b
+    (``within_b``), and the draws' e (``e``)."""
+    e_a, e_c = np.asarray(e_first, np.float64), np.asarray(e_later, np.float64)
+    move = float(np.median(moves)) if len(moves) else 0.0
+    shift = float(np.median(e_c - e_a))
+    pos = (e_a > 0) & (e_c > 0)
+    log = np.log(e_c[pos] / e_a[pos])
+    return dict(ok=shift <= max(b, move), b=b, move=move, shift=shift,
+                e0=(float(e_a[0]), float(e_c[0])),
+                median=(float(np.median(e_a)), float(np.median(e_c))),
+                further=int((e_c > e_a).sum()), n=len(e_a),
+                ratio=float(np.exp(log.mean())) if len(log) else float("nan"),
+                se=float(log.std(ddof=1) / np.sqrt(len(log))) if len(log) > 1 else float("nan"),
+                within_b=(int((e_a <= b).sum()), int((e_c <= b).sum())), e=(e_a, e_c))
+
+
+def float64_rule(bounds, moves, errs_first, errs_later, nan_first, nan_later, nan64, draws):
+    """``--ab --float64``'s hold of one case over its ``draws`` stacked
+    draws.  ``bounds`` maps each field to b (:func:`field_bounds`),
+    ``moves`` to float64's move per perturbed draw (:func:`float64_moves`),
+    ``errs_first`` and ``errs_later`` to each checkout's per-string errors
+    (:func:`string_errors`); ``nan_*`` flag the strings whose uout has a
+    NaN, in each checkout and in float64.  For each field a draw's e is its
+    largest error over the strings finite in both checkouts (a string that
+    one poisons drops out of both, and the poison rule counts it), and
+    :func:`draw_rule` decides on the draws' e.  The case also fails if the
+    later checkout poisons more strings than the first, over all draws,
+    among those float64 keeps finite: where float64 poisons a string too,
+    a poisoned result is float64's, and whether float32 poisons it as
+    well is a matter of rounding (PERF.md).  Returns ``(ok, rows,
+    poisoned)``: rows :func:`draw_rule`'s dicts with their ``field``,
+    poisoned ``(draw, string, first, later, float64 finite)`` for each
+    string whose status differs."""
+    rows = []
+    for key, b in bounds.items():
+        if key in errs_first and key in errs_later:
+            (e_a, f_a), (e_c, f_c) = errs_first[key], errs_later[key]
+            rows.append(dict(field=key, **draw_rule(
+                draw_errors(e_a, f_a & f_c, draws), draw_errors(e_c, f_a & f_c, draws),
+                float(b), moves.get(key, ()))))
+    B = len(nan_first) // draws
+    poisoned = [(int(s) // B, int(s) % B, bool(nan_first[s]), bool(nan_later[s]),
+                 not bool(nan64[s])) for s in np.nonzero(nan_first != nan_later)[0]]
+    ok = (all(r["ok"] for r in rows)
+          and int((nan_later & ~nan64).sum()) <= int((nan_first & ~nan64).sum()))
     return ok, rows, poisoned
 
 
+def float64_case(x64, first, later, gmres=False, draws=1):
+    """:func:`float64_rule` on whole fields: ``x64``, ``first`` and
+    ``later`` map each saved field to its array over ``draws`` stacked
+    draws (the unperturbed first), the float64 plain version's, the first
+    checkout's and a later checkout's; b from the unperturbed float64
+    draw, and float64's moves from its own draws."""
+    B = np.shape(x64["uout"])[0] // draws
+    nan = lambda d: np.isnan(np.asarray(d["uout"])).any(axis=1)
+    bounds = field_bounds({key: draw_block(key, np.asarray(x), 0, B)
+                           for key, x in x64.items()}, gmres)
+    return float64_rule(bounds, float64_moves(x64, draws), string_errors(x64, first),
+                        string_errors(x64, later), nan(first), nan(later), nan(x64), draws)
+
+
 def ab_float64(roots, paths):
-    """Every later checkout's saved outputs held to the float64 plain
-    version of the first checkout's process by :func:`float64_case`, case
-    by case, with float64's own move under a one-ulp change of the inputs
-    (the ``f64p`` run) as the allowance where it exceeds b; e_first,
-    e_later, b and that move printed per case and field, and each string
-    poisoned on one side only.  Returns False if a case fails."""
+    """Every later checkout's draws held to the float64 plain version of
+    the first checkout's process by :func:`float64_rule`, case by case;
+    per field printed: the unperturbed e of both checkouts, both medians
+    over the draws, b and float64's median move, on how many draws the
+    later lies further, the paired geometric-mean ratio with the standard
+    error of its log, and on how many draws each lies within b; and each
+    string poisoned on one side only.  Returns False if a case fails."""
     ref = np.load(paths[0])
-    if not any(key.startswith("f64/") for key in ref.files):
+    if not any(key.startswith("b/") for key in ref.files):
         print(f"[ab] {roots[0]}: no float64 fields")
         return False
     pick = lambda data, prefix: {key[len(prefix):]: data[key] for key in data.files
@@ -3933,20 +4127,29 @@ def ab_float64(roots, paths):
     for root, path in zip(roots[1:], paths[1:]):
         got = np.load(path)
         for tag, _, _, _ in AB_CASES:
-            x64 = pick(ref, f"f64/{tag}/")
-            gmres = bool(x64.pop("gmres"))
-            moves = float64_moves(x64, pick(ref, f"f64p/{tag}/"))
-            case_ok, rows, poisoned = float64_case(x64, pick(ref, f"{tag}/"),
-                                                   pick(got, f"{tag}/"), gmres, moves)
-            n_first = int(np.isnan(ref[f"{tag}/uout"]).any(axis=1).sum())
-            n_later = int(np.isnan(got[f"{tag}/uout"]).any(axis=1).sum())
-            print(f"[ab] {root} ({tag}) from float64 {'held' if case_ok else 'FAILS'}: "
-                  + ", ".join(f"{key} {e_a:.3e} -> {e_c:.3e} (b {b:.3e}, float64 moves "
-                              f"{m:.3e}{'' if e_c <= e_a + max(b, m) else ': over'})"
-                              for key, e_a, e_c, b, m in rows)
-                  + f"; poisoned strings {n_first} -> {n_later}")
-            for s, p_a, p_c, fin64 in poisoned:
-                print(f"[ab]     ({tag}) string {s}: poisoned {p_a} -> {p_c}, "
+            errs = lambda data: {key: (e, data[f"fin/{tag}/{key}"])
+                                 for key, e in pick(data, f"e/{tag}/").items()}
+            nan_a, nan_c, nan64 = ref[f"nan/{tag}"], got[f"nan/{tag}"], ref[f"nan64/{tag}"]
+            case_ok, rows, poisoned = float64_rule(
+                pick(ref, f"b/{tag}/"), pick(ref, f"move/{tag}/"), errs(ref), errs(got),
+                nan_a, nan_c, nan64, AB_DRAWS)
+            print(f"[ab] {root} ({tag}) from float64 over {AB_DRAWS} draws "
+                  f"{'held' if case_ok else 'FAILS'}: poisoned strings {int(nan_a.sum())} -> "
+                  f"{int(nan_c.sum())}, of those float64 keeps finite "
+                  f"{int((nan_a & ~nan64).sum())} -> {int((nan_c & ~nan64).sum())}")
+            for r in rows:
+                print(f"[ab]     ({tag}) {r['field']}: unperturbed {r['e0'][0]:.3e} -> "
+                      f"{r['e0'][1]:.3e}, median {r['median'][0]:.3e} -> {r['median'][1]:.3e}, "
+                      f"later further by {r['shift']:.3e} in the median draw (b {r['b']:.3e}, "
+                      f"float64's median move {r['move']:.3e}){'' if r['ok'] else ': over'}; "
+                      f"later further on {r['further']}/{r['n']}, geometric mean of "
+                      f"later/first {r['ratio']:.3f} (standard error of its log "
+                      f"{r['se']:.3f}); within b on {r['within_b'][0]}/{r['n']} -> "
+                      f"{r['within_b'][1]}/{r['n']}")
+                print(f"[ab]         e per draw: " + " ".join(f"{x:.3e}" for x in r["e"][0])
+                      + " -> " + " ".join(f"{x:.3e}" for x in r["e"][1]))
+            for d, s, p_a, p_c, fin64 in poisoned:
+                print(f"[ab]     ({tag}) draw {d} string {s}: poisoned {p_a} -> {p_c}, "
                       f"float64 {'finite' if fin64 else 'poisoned'}")
             ok = ok and case_ok
     return ok
@@ -4155,7 +4358,10 @@ def main():
     if sys.argv[1:2] == ["--deterministic-step"]:
         return deterministic_step(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-one"]:
-        ab_times(os.path.abspath(sys.argv[2]), sys.argv[3], sys.argv[4:5] == ["--float64"])
+        # --ab-one ROOT OUT [--float64 DRAWS_DIR [--reference]]
+        draws_dir = sys.argv[5] if sys.argv[4:5] == ["--float64"] else None
+        ab_times(os.path.abspath(sys.argv[2]), sys.argv[3], draws_dir,
+                 sys.argv[6:7] == ["--reference"])
         return 0
     if sys.argv[1:2] == ["--ab"]:
         import tempfile
@@ -4166,9 +4372,11 @@ def main():
             paths = [os.path.join(tmp, f"ab{n}.npz") for n in range(len(roots))]
             for n, (root, path) in enumerate(zip(roots, paths)):
                 # this file by path, so that each checkout's own package is
-                # imported; a failed build or launch fails the whole call
+                # imported, and its draws are this file's; a failed build or
+                # launch fails the whole call
+                draws = ["--float64", tmp] + (["--reference"] if n == 0 else [])
                 subprocess.run([sys.executable, os.path.abspath(__file__), "--ab-one",
-                                root, path] + (["--float64"] if float64 and n == 0 else []),
+                                root, path] + (draws if float64 else []),
                                check=True, cwd=root)
             spills = ab_ptxas(roots, paths)
             if float64:
@@ -4177,8 +4385,9 @@ def main():
                 held, faster = ab_compare(roots, paths), True
             if not held:
                 print("[ab] the checkouts' outputs differ"
-                      + (" from float64 beyond the first's distance plus the f32 bound, "
-                         "or poison more strings" if float64 else ""), file=sys.stderr)
+                      + (" from float64 further than the first's in the median draw by "
+                         "more than the f32 bound, or poison more strings" if float64 else ""),
+                      file=sys.stderr)
                 return 1
             if not spills:
                 print("[ab] an instance spills more than in the first checkout",
@@ -4189,8 +4398,8 @@ def main():
                       f"{AB_SPEED_CASES}", file=sys.stderr)
                 return 1
         print("[ab] every saved output " + (
-            "as near float64 as the first checkout's, within the f32 bounds, no more "
-            "strings poisoned, no slower" if float64
+            f"as near float64 as the first checkout's in the median of {AB_DRAWS} draws, "
+            "within the f32 bounds, no more strings poisoned, no slower" if float64
             else "equal bit for bit across the checkouts"))
         return 0
     from torch_fdtd_string_tpu_torch.ops import build

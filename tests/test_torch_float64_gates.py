@@ -80,37 +80,104 @@ def _off(fields, by, rng):
             for key, x in fields.items()}
 
 
-def _bound(key, x64, gmres=False):
-    _, rows, _ = cs.float64_case(x64, x64, x64, gmres)
-    return dict((k, b) for k, _, _, b, _ in rows)[key]
+def _stack(blocks):
+    """Draws' fields stacked along each field's batch axis, as
+    ``chip_smoke.stacked_draws`` stacks a case's draws."""
+    return {key: np.concatenate([b[key] for b in blocks],
+                                axis=1 if key in ("state_u", "state_z") else 0)
+            for key in blocks[0]}
 
+
+def _bound(key, x64, gmres=False):
+    return cs.field_bounds(x64, gmres)[key]
+
+
+# the draw rule's cases: 9 draws; per draw, how far the first checkout lies
+# from float64 in units of b.  "rounding_differs": the later checkout has
+# the first's draws 0 and 4 swapped, the unperturbed draw's 0.3 b -> 2.0 b
+# as on case (t)
+DRAWS = 9
+FIRST_BY = [0.3, 0.5, 0.4, 0.6, 2.0, 0.45, 0.35, 0.55, 1.6]
+SWAPPED = [4, 1, 2, 3, 0, 5, 6, 7, 8]
+# "spread_past_b": every draw far past b, as case (b)'s z fields on the
+# card; the later checkout's draws 0 and 1 rise above the median, whose
+# unpaired value then moves by 40 b
+SPREAD_BY = [40.0, 60.0, 80.0, 100.0, 120.0, 140.0, 160.0, 180.0, 200.0]
+SPREAD_LATER_BY = [190.0, 210.0] + SPREAD_BY[2:]
 
 GATE_CASES = ["same_distance", "within_b", "past_b_uout", "past_b_carry_u1",
               "past_b_carry_z2", "within_move", "past_move", "one_more_poisoned",
-              "one_fewer_poisoned", "zout_floor", "force"]
+              "one_fewer_poisoned", "zout_floor", "force", "rounding_differs",
+              "shift_2b", "minority_past_b", "majority_past_b", "poisoned_in_perturbed_draw",
+              "poisoned_as_float64", "spread_past_b"]
+DRAW_CASES = GATE_CASES[-7:]
+
+
+def _draw_case(case, x0):
+    """A draw-rule case on DRAWS copies of the fields ``x0`` (float64 does
+    not move): ``(x64, first, later, want)``."""
+    bound = cs.field_bounds(x0)
+    by = lambda m: {key: m * b for key, b in bound.items()}
+    x64 = _stack([x0] * DRAWS)
+    first_by = SPREAD_BY if case == "spread_past_b" else FIRST_BY
+    first = _stack([_off(x0, by(m), np.random.default_rng(10 + i))
+                    for i, m in enumerate(first_by)])
+    if case == "spread_past_b":
+        later = _stack([_off(x0, by(m), np.random.default_rng(10 + i))
+                        for i, m in enumerate(SPREAD_LATER_BY)])
+        return x64, first, later, True
+    if case == "rounding_differs":
+        later = _stack([_off(x0, by(FIRST_BY[j]), np.random.default_rng(10 + j))
+                        for j in SWAPPED])
+        return x64, first, later, True
+    later = dict(first, uout=first["uout"].copy())
+    B = x0["uout"].shape[0]
+    shifted = {"shift_2b": range(DRAWS), "minority_past_b": (1, 4, 7),
+               "majority_past_b": (1, 2, 4, 6, 7)}.get(case, ())
+    for i in shifted:
+        step = 2.0 if case == "shift_2b" else 3.0
+        later["uout"][i * B:(i + 1) * B] += np.float32(step * bound["uout"])
+    if case.startswith("poisoned"):
+        later["uout"][3 * B + 1, 9:] = np.nan
+    if case == "poisoned_as_float64":
+        x64["uout"][3 * B + 1, 11:] = np.nan
+    return x64, first, later, case in ("minority_past_b", "poisoned_as_float64")
 
 
 @pytest.mark.parametrize("case", GATE_CASES)
 def test_float64_comparator(case):
-    """``float64_case`` on synthetic arrays: a later checkout as far from
-    float64 as the first passes, and one within b of the first's distance;
-    one further by more than b in uout or in a carry field of (u)'s
-    (u1, u2, z1, z2, held as state) fails, unless float64 itself moves by
-    more than that under a one-ulp change of the inputs, and then one
-    further by more than that move fails; one more poisoned string fails,
-    one fewer passes and is listed; an excited GMRES case's zout bound
-    follows ZOUT_FLOOR of uout's scale; F_H's is FORCE_REL of max(scale,
-    1)."""
+    """``float64_case`` on synthetic arrays.  One draw: a later checkout as
+    far from float64 as the first passes, and one within b of the first's
+    distance; one further by more than b in uout or in a carry field of
+    (u)'s (u1, u2, z1, z2, held as state) fails, unless float64 itself
+    moves by more than that under a one-ulp change of the inputs (its
+    second draw), and then one further by more than that move fails; one
+    more poisoned string fails, one fewer passes and is listed; an excited
+    GMRES case's zout bound follows ZOUT_FLOOR of uout's scale; F_H's is
+    FORCE_REL of max(scale, 1).  Over 9 draws the median decides: the same
+    distances in another order pass although the unperturbed draw alone
+    fails (0.3 b -> 2.0 b); 2 b further on every draw fails; 3 b further on
+    3 draws passes (the median holds), on 5 fails; a string poisoned in one
+    perturbed draw fails, unless float64 poisons it too; where every draw
+    lies far past b, two draws rising past the median pass, though the
+    unpaired median moves by 40 b."""
     rng = np.random.default_rng(3)
-    x64 = _case(rng, excited=case in ("zout_floor", "force"))
-    gmres = case == "zout_floor"
+    x0 = x64 = _case(rng, excited=case in ("zout_floor", "force"))
+    gmres, draws, want = case == "zout_floor", 1, True
     if case == "zout_floor":
         x64["zout"] *= 1e-9  # below ZOUT_FLOOR of uout
     elif case == "force":
         x64["F_H"] *= 1e-3
-    first_by = {key: 0.5 * _bound(key, x64, gmres) for key in x64}
-    first = _off(x64, first_by, np.random.default_rng(4))
-    later, want, moves = first, True, None
+    if case in DRAW_CASES:
+        x64, first, later, want = _draw_case(case, x0)
+        draws = DRAWS
+        if case == "rounding_differs":  # the unperturbed draw alone fails
+            block0 = lambda d: {k: cs.draw_block(k, x, 0, 4) for k, x in d.items()}
+            assert not cs.float64_case(block0(x64), block0(first), block0(later))[0]
+    else:
+        first_by = {key: 0.5 * _bound(key, x64, gmres) for key in x64}
+        first = _off(x64, first_by, np.random.default_rng(4))
+        later = first
     if case == "within_b":
         later = _off(x64, {key: 1.4 * v for key, v in first_by.items()},
                      np.random.default_rng(5))
@@ -120,11 +187,14 @@ def test_float64_comparator(case):
         later[key] = first[key] + np.float32(2.5 * _bound(key, x64))
         want = False
     elif case in ("within_move", "past_move"):
-        # float64 moves 3 b in uout; the later checkout is 2.5 b or 3.5 b further
+        # float64's second draw moves 3 b in uout; the later checkout is
+        # 2.5 b or 3.5 b further on both draws
         b = _bound("uout", x64)
         moved = dict(x64, uout=x64["uout"] + 3.0 * b)
-        moves = cs.float64_moves(x64, moved)
-        assert moves["uout"] == pytest.approx(3.0 * b) and moves["zout"] == 0.0
+        first = _stack([first, _off(moved, first_by, np.random.default_rng(6))])
+        x64, draws = _stack([x64, moved]), 2
+        moves = cs.float64_moves(x64, draws)
+        assert moves["uout"] == pytest.approx([3.0 * b]) and moves["zout"] == [0.0]
         by = 2.5 if case == "within_move" else 3.5
         later = dict(first, uout=first["uout"] + np.float32(by * b))
         want = case == "within_move"
@@ -142,18 +212,37 @@ def test_float64_comparator(case):
         b = _bound("F_H", x64)
         assert b == pytest.approx(cs.FORCE_REL)
         later = dict(first, F_H=(x64["F_H"] + 1.4 * b).astype(np.float32))
-    ok, rows, poisoned = cs.float64_case(x64, first, later, gmres, moves)
+    ok, rows, poisoned = cs.float64_case(x64, first, later, gmres, draws)
     assert ok == want, (case, rows)
-    assert [r[0] for r in rows] == list(x64)
+    assert [r["field"] for r in rows] == list(x64)
+    assert all(r["n"] == draws for r in rows)
     if case.endswith("poisoned"):
-        assert poisoned == [(2, case == "one_fewer_poisoned", case == "one_more_poisoned",
+        assert poisoned == [(0, 2, case == "one_fewer_poisoned", case == "one_more_poisoned",
                              True)]
+    elif case in ("poisoned_in_perturbed_draw", "poisoned_as_float64"):
+        assert poisoned == [(3, 1, False, True, case == "poisoned_in_perturbed_draw")]
+        assert all(r["ok"] for r in rows)  # the poison rule alone decides
     else:
         assert poisoned == []
     if case == "same_distance":
-        assert all(e_a == e_c and m == 0.0 for _, e_a, e_c, _, m in rows)
-        rows_b = dict((k, b) for k, _, _, b, _ in rows)
+        assert all(r["e0"][0] == r["e0"][1] and r["move"] == 0.0 for r in rows)
+        rows_b = {r["field"]: r["b"] for r in rows}
         for key in cs.STATE_FIELDS:
             scale = np.abs(x64[key]).max()
             assert rows_b[key] == pytest.approx(min(cs.STATE_ATOL, cs.STATE_REL * scale))
         assert rows_b["uout"] == pytest.approx(cs.READOUT_REL * np.abs(x64["uout"]).max())
+    if case in DRAW_CASES:
+        uout = next(r for r in rows if r["field"] == "uout")
+        b = _bound("uout", x0)
+        assert uout["b"] == pytest.approx(b) and uout["move"] == 0.0
+        if case == "rounding_differs":
+            assert uout["e0"][1] - uout["e0"][0] > b and uout["shift"] == 0.0
+            assert uout["median"][0] == uout["median"][1]
+            assert uout["further"] == 1 and uout["ratio"] == pytest.approx(1.0)
+        elif case in ("shift_2b", "majority_past_b"):
+            assert uout["shift"] > b and uout["median"][1] - uout["median"][0] > b
+        elif case == "minority_past_b":
+            assert uout["shift"] == 0.0 and uout["further"] == 3
+        elif case == "spread_past_b":
+            assert uout["shift"] == 0.0 and uout["further"] == 2
+            assert uout["median"][1] - uout["median"][0] == pytest.approx(40 * b, rel=1e-3)
