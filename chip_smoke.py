@@ -927,10 +927,12 @@ def as_output(arrays, like):
 
 
 def take_rows(out, idx):
-    """The rows ``idx`` of a call's outputs, as :func:`compare` reads them."""
+    """The rows ``idx`` of a call's outputs, as :func:`compare` reads them,
+    with the final carry."""
     uout, zout, aux = out
     part = {key: aux[key][:, idx] for key in ("state_u", "state_z")}
     part.update({key: aux[key][idx] for key in ("v_r", "F_H", "u_H") if key in aux})
+    part["carry"] = tuple(c[idx] for c in aux["carry"])
     return uout[idx], zout[idx], part
 
 
@@ -1462,6 +1464,41 @@ def float64_distance(got, ref64):
     return tuple(out)
 
 
+def draw_distances(got, ref64, draws):
+    """:func:`float64_distance` of each of ``draws`` stacked draws
+    (:func:`stacked_draws`): draw i's rows of ``got`` against the same rows
+    of ``ref64``."""
+    B = got[0].shape[0] // draws
+    return [float64_distance(take_rows(got, slice(i * B, (i + 1) * B)),
+                             take_rows(ref64, slice(i * B, (i + 1) * B)))
+            for i in range(draws)]
+
+
+# phase 3 (t)'s float64 hold: the final state's absolute error, that error
+# and uout's as shares of their float64 scales, each with its f32 bound
+HOLD_QUANTITIES = (("final state abs", STATE_ATOL), ("final state of scale", STATE_REL),
+                   ("uout of scale", READOUT_REL))
+
+
+def float64_hold(rows):
+    """Phase 3 (t)'s float64 hold over stacked draws, each draw's
+    :func:`float64_distance` a row of ``rows``: per draw the three
+    HOLD_QUANTITIES, and the hold passes if the median over the draws of
+    each is within its bound.  Two equally accurate roundings part by more
+    than a bound on single draws, so one draw does not decide; a loss of
+    accuracy on most draws moves the median past the bound (PERF.md).
+    Returns the verdict (``ok``), the per-draw values (``values``, draws x
+    3), their ``median`` and on how many draws each is within its bound
+    (``within``)."""
+    r = np.asarray(rows, np.float64).reshape(-1, 4)
+    values = np.stack([r[:, 0], r[:, 0] / np.maximum(r[:, 1], 1e-300),
+                       r[:, 2] / np.maximum(r[:, 3], 1e-300)], axis=1)
+    bounds = np.array([b for _, b in HOLD_QUANTITIES])
+    median = np.median(values, axis=0)
+    return dict(ok=bool((median <= bounds).all()), values=values, median=median,
+                within=(values <= bounds).sum(axis=0))
+
+
 def check_fixed(draws, card):
     """Phase 3 (t): the fixed schedule (1 and 2 sweeps) against its plain
     version on each draw ``(tag, inputs, hold)``, and two sweeps against
@@ -1473,10 +1510,13 @@ def check_fixed(draws, card):
     read 2.170e-4 of the state on the CPU; PERF.md), and the nsynth-like
     draw's strongly coupled strings (alpha up to 25) two sweeps do not
     bring to the adaptive fixed point at all.  ``hold`` is ``"float64"`` on
-    draw (a): the card's adaptive and fixed-2 results are each held to the
-    float64 plain version of the same schedule on the same inputs cast to
-    float64, at the f32 bounds of tests/test_pallas_kernel.py:53-58 (final
-    state STATE_ATOL and STATE_REL of scale, uout READOUT_REL of scale).
+    draw (a): the card's adaptive and fixed-2 results on AB_DRAWS
+    :func:`stacked_draws` (the first draw held bit for bit to the loop's
+    call) are each held to the float64 plain version of the same schedule
+    on the same inputs cast to float64, at the f32 bounds of
+    tests/test_pallas_kernel.py:53-58 (final state STATE_ATOL and STATE_REL
+    of scale, uout READOUT_REL of scale) in the median draw
+    (:func:`float64_hold`).
     Returns the JSON record of the first draw's two sweeps: draw (a), the
     bench workload that phase 15 launches the instance on."""
     from torch_fdtd_string_tpu_torch.ops import string_kernel as sk
@@ -1506,22 +1546,38 @@ def check_fixed(draws, card):
                            bound_by=bound_by, library_ms=None)
         if hold != "float64":
             continue
-        args64, kw64 = cast_inputs((args, kwargs), torch.float64)
+        B = args[0].shape[0]
+        block0 = lambda out: take_rows(out, slice(0, B))
+        stacked = stacked_draws((args, kwargs), AB_DRAWS)
+        args64, kw64 = cast_inputs(stacked, torch.float64)
         ref64 = {n: sk.string_chunked_reference(*args64, **dict(kw64, coupling_fixed=n))
                  for n in (0, 2)}
-        gap64 = fixed_gap(ref64[0], ref64[2])
+        gap64 = fixed_gap(block0(ref64[0]), block0(ref64[2]))
         print(f"[3] (t) {tag}: the float64 plain version's own fixed-2 against adaptive: "
               f"final state {gap64[0]:.3e}, uout {gap64[1]:.3e} of scale")
         for n, out in ((0, adaptive), (2, got)):  # got: the loop's two sweeps
-            s_err, s_scale, u_err, u_scale = float64_distance(out, ref64[n])
             what = "adaptive" if n == 0 else "fixed-2"
+            draws_out = sk.string_chunked(*stacked[0], **dict(stacked[1], coupling_fixed=n))
+            for (name, a), (_, b) in zip(named_fields(block0(draws_out)), named_fields(out)):
+                if a.cpu().numpy().tobytes() != b.cpu().numpy().tobytes():
+                    raise AssertionError(f"[3] (t) {tag}, {what} {name}: the stacked call's "
+                                         "first draw is not the call's result bit for bit")
+            rows = draw_distances(draws_out, ref64[n], AB_DRAWS)
+            s_err, s_scale, u_err, u_scale = rows[0]
             print(f"[3] (t) {tag}, {what} against its float64 plain version: final state "
                   f"{s_err:.3e} abs, {s_err / s_scale:.3e} of scale; uout "
                   f"{u_err / u_scale:.3e} of scale [{card}]")
-            if not (s_err <= STATE_ATOL and s_err <= STATE_REL * s_scale
-                    and u_err <= READOUT_REL * u_scale):
-                raise AssertionError(f"[3] (t) {tag}, {what}: beyond the f32 bounds of "
-                                     "the float64 plain version")
+            verdict = float64_hold(rows)
+            print(f"[3] (t) {tag}, {what} over {AB_DRAWS} draws (the inputs, then u1 and u2 "
+                  f"one float32 ulp up, seeds 1-{AB_DRAWS - 1}), the first draw's the call's "
+                  f"result bit for bit: {'held' if verdict['ok'] else 'FAILS'} [{card}]")
+            for j, (quantity, b) in enumerate(HOLD_QUANTITIES):
+                print(f"[3]     {quantity}: median {verdict['median'][j]:.3e} (bound {b:.1e}), "
+                      f"within on {verdict['within'][j]}/{AB_DRAWS}; per draw "
+                      + " ".join(f"{x:.3e}" for x in verdict["values"][:, j]))
+            if not verdict["ok"]:
+                raise AssertionError(f"[3] (t) {tag}, {what}: the median draw beyond the f32 "
+                                     "bounds of the float64 plain version")
     return rec
 
 
@@ -3943,6 +3999,12 @@ def ab_compare(roots, paths):
 # --ab --float64: the fields held as state, and the draws held no slower
 STATE_FIELDS = ("state_u", "state_z", "u1", "u2", "z1", "z2")
 AB_SPEED_CASES = ("a", "b", "k", "l", "u")
+# --ab's speed rule: a later checkout counts as slower on one of
+# AB_SPEED_CASES if its mean exceeds the first checkout's by more than this
+# share of it.  None: two checkouts that time the same code read up to
+# 5.809% apart on one case (one turn 11% slow; PERF.md), past the 3% that
+# an allowance may take, so the rule stays as strict as it was
+AB_SPEED_ALLOWANCE = 0.0
 # --ab --float64's draws of each case: the unperturbed inputs and 16
 # ulp-perturbed copies.  The largest case, (v) at B=256, holds 115 MB of
 # float32 outputs per copy (256 steps of state at M_t + M_l = 434 lanes) and
@@ -4155,29 +4217,42 @@ def ab_float64(roots, paths):
     return ok
 
 
-def ab_speed(roots, paths):
-    """The mean time of each of AB_SPEED_CASES per distinct checkout (a
-    checkout given twice, as in old, new, new, old, averages its runs).
-    Returns False if a later checkout is slower than the first on any of
-    them."""
+def speed_rule(roots, times):
+    """``--ab``'s speed rule over the checkouts ``roots``, in their turns,
+    and each turn's times (ms per 256 steps by case): the mean of each of
+    AB_SPEED_CASES per distinct checkout (one given twice, as in old, new,
+    new, old, averages its turns), and per later checkout the cases on
+    which its mean exceeds the first checkout's by more than
+    AB_SPEED_ALLOWANCE of it.  Returns ``(mean, slower)``, each by
+    checkout."""
     runs = {}
-    for root, path in zip(roots, paths):
-        runs.setdefault(root, []).append(json.loads(str(np.load(path)["times"])))
+    for root, t in zip(roots, times):
+        runs.setdefault(root, []).append(t)
     mean = {root: {tag: float(np.mean([t[tag] for t in ts])) for tag in AB_SPEED_CASES}
             for root, ts in runs.items()}
     first = mean[roots[0]]
-    ok = True
-    for root, m in mean.items():
-        if root == roots[0]:
-            continue
-        slower = [tag for tag in AB_SPEED_CASES if m[tag] > first[tag]]
+    slower = {root: [tag for tag in AB_SPEED_CASES
+                     if m[tag] > first[tag] * (1 + AB_SPEED_ALLOWANCE)]
+              for root, m in mean.items() if root != roots[0]}
+    return mean, slower
+
+
+def ab_speed(roots, paths):
+    """:func:`speed_rule` on the saved times: per later checkout its mean
+    of each case against the first's, the allowance and the cases it is
+    slower on.  Returns False if a later checkout is slower on any."""
+    mean, slower = speed_rule(roots, [json.loads(str(np.load(path)["times"]))
+                                      for path in paths])
+    first = mean[roots[0]]
+    for root, tags in slower.items():
+        m = mean[root]
         print(f"[ab] speed {root} against {roots[0]}, mean ms per 256 steps: "
               + ", ".join(f"({tag}) {first[tag]:.3f} -> {m[tag]:.3f} "
-                          f"({100 * (m[tag] / first[tag] - 1):+.1f}%)"
+                          f"({100 * (m[tag] / first[tag] - 1):+.3f}%)"
                           for tag in AB_SPEED_CASES)
-              + (f"; slower on {slower}" if slower else ""))
-        ok = ok and not slower
-    return ok
+              + f"; allowance +{100 * AB_SPEED_ALLOWANCE:.3f}%"
+              + (f"; slower past it on {tags}" if tags else ""))
+    return not any(slower.values())
 
 
 def sharded_only(dev, card, t_start):
@@ -4381,8 +4456,9 @@ def main():
             spills = ab_ptxas(roots, paths)
             if float64:
                 held, faster = ab_float64(roots, paths), ab_speed(roots, paths)
-            else:
+            else:  # the speed rule's reading, printed, not decided on (PERF.md)
                 held, faster = ab_compare(roots, paths), True
+                ab_speed(roots, paths)
             if not held:
                 print("[ab] the checkouts' outputs differ"
                       + (" from float64 further than the first's in the median draw by "
